@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with nvcc,
-holds each against its plain PyTorch version at the serving path's
-shapes and times it, then drives the serving path through the entry
-points a user calls:
+Builds the five CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with
+nvcc, holds each against its plain PyTorch version at its path's shapes
+(and ragged, f32/bf16, causal/full variants), shows each backward kernel
+bitwise deterministic across two calls, times each, then drives the
+serving and training paths through the entry points a user calls:
 
 - path (a): ``generate`` at llama3-8b (all 32 layers, bf16, random
   weights from ``init_params(seed=0)``), batch 4, prompt 512, 32 new
@@ -17,7 +18,15 @@ points a user calls:
 - path (b): the loopback ``ContinuousBatcher`` at llama3-1b f32 over
   streamed weight pages, four requests and a fifth that joins mid-run,
   each request's greedy tokens held against ``generate`` on the same
-  weights.
+  weights;
+- path (c): ``Trainer("llama3-1b", remat=True)`` in bf16, all 16
+  layers, batch 2, seq 2048 (the shape of
+  ``examples/train_single_chip.py``), one warm step then 4 timed steps
+  on one batch — step ms, tokens/s, model-FLOP share of the bf16 peak,
+  device busy vs wall, peak memory, losses, launch counts;
+- training parity: llama3-1b in f32, batch 1, seq 200, loss and every
+  parameter's gradient on the card (kernels) against the CPU (plain
+  versions), then the parameters after one AdamW step.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -46,9 +55,14 @@ import torch.nn.functional as F
 
 from rocnrdma_tpu_torch.models import llama
 from rocnrdma_tpu_torch.ops import _native
-from rocnrdma_tpu_torch.ops.attention import (flash_attention_lse,
-                                              flash_attention_lse_reference)
-from rocnrdma_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_reference
+from rocnrdma_tpu_torch.ops.attention import (
+    flash_attention_bwd_reference, flash_attention_lse,
+    flash_attention_lse_reference, flash_attention_shard_grads,
+    flash_bwd_dkv, flash_bwd_dq)
+from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                            rmsnorm_bwd_reference,
+                                            rmsnorm_reference)
+from rocnrdma_tpu_torch.parallel.trainer import Trainer
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
 
@@ -62,16 +76,40 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 # - bf16 outputs: both sides round an f32 result to bf16, so they may
 #   differ by one bf16 step of the value (2^-7 relative; attention gets
 #   2e-2 absolute on O(1) outputs); lse is f32 in both dtypes.
+# - backward: dx, dq, dk, dv as the forward outputs of their dtype
+#   (attention's gradients are O(1-10) sums of up to S products, 2e-4
+#   in f32 leaves 20x margin over the f32 error measured against f64);
+#   dw is an f32 sum over all rows taken in another order (kernel: runs
+#   of rows, then 256 partials), so rtol 1e-4 and atol 1e-3.
 TOL = {("rmsnorm", torch.float32): (1e-5, 1e-5),
        ("rmsnorm", torch.bfloat16): (2 ** -7, 2 ** -7),
        ("flash", torch.float32): (2e-4, 2e-4),
        ("flash", torch.bfloat16): (2e-2, 2e-2),
-       ("lse", None): (2e-4, 2e-4)}
+       ("lse", None): (2e-4, 2e-4),
+       ("dw", None): (1e-4, 1e-3)}
 
 # Full-forward logits, card (kernels, cuBLAS f32) against CPU (plain
 # versions): sums of 2048- and 5632-long products taken in another order
 # through 16 layers.
 PARITY_TOL = 1e-3
+
+# Training parity, card against CPU, llama3-1b f32: the loss to 1e-4
+# (the logits' 1e-3 averaged over 200 positions); each parameter's
+# gradient to 1e-3 of that gradient's largest element (the same f32 sums
+# in another order, forward and back through 16 layers). After one
+# AdamW step from equal weights each element moved by
+# lr * g / (|g| + eps) plus the decay, i.e. lr * sign(g) up to eps / |g|.
+# Where the CPU's |g| exceeds 1e-2 of its tensor's largest gradient (so
+# the two sides' gradients share a sign and differ by at most 1e-1
+# relative) and 1e-6 (so eps moves the update by at most 1e-2 lr), the
+# parameters differ by under 4e-7 from the gradients plus a few f32
+# rounding steps: TRAIN_DECIDED_TOL. An element whose gradient is near
+# zero may land up to 2 lr apart; of those at most one element in 1e4
+# may differ by more than 1e-5.
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_DECIDED_TOL = 2e-6
+BF16_PEAK = PEAK_OPS[torch.bfloat16]
 
 
 def emit(obj) -> None:
@@ -147,28 +185,50 @@ def eager_ms(fn, iters: int) -> float:
 def profile_steps(step, n: int) -> dict:
     """Device time per call of ``step`` from torch.profiler (CUPTI): the
     sum of kernel times, the kernels launched, and the six costliest
-    kernels. ``None`` where the profiler saw no device activity."""
+    kernels, with the host wall time of the same profiled calls and the
+    card's idle share over it (1 - busy / wall). ``None`` where the
+    profiler saw no device activity. Ranges that code marks on the
+    device timeline (user annotations such as
+    ``Optimizer.step#AdamW.step``) span kernels and are not counted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(n):
             step()
         torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    notes = {e.name for e in prof.events()
+             if getattr(e, "is_user_annotation", False)}
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and e.key not in notes]
     busy = sum(e.self_device_time_total for e in kern) / n / 1e3
     if not kern or busy <= 0:
-        return {"device_ms": None, "kernels": None, "top": None}
+        return {"profiled_wall_ms": wall, "device_ms": None,
+                "idle_share": None, "kernels": None, "top": None}
+    # One stream runs the kernels one at a time: more busy time than
+    # wall time means the profile counted something twice.
+    require(busy <= wall, f"profiled device busy {busy} ms exceeds the "
+                          f"wall time {wall} ms of the same calls")
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    ours = {name: sum(e.self_device_time_total for e in kern
-                      if name in e.key) / n / 1e3
+    def ms_of(match) -> float:
+        return sum(e.self_device_time_total for e in kern
+                   if match(e.key)) / n / 1e3
+
+    ours = {name: ms_of(lambda key, nm=name: nm in key)
             for name in _native.KERNELS}
-    return {"device_ms": busy,
+    return {"profiled_wall_ms": wall, "device_ms": busy,
+            "idle_share": 1.0 - busy / wall,
             "kernels": sum(e.count for e in kern) / n,
+            "annotations_not_counted": sorted(notes),
             "ported_kernel_ms": ours,
+            "library_gemm_ms": ms_of(lambda key: any(
+                t in key.lower() for t in ("nvjet", "gemm", "cutlass",
+                                           "xmma"))),
+            "foreach_ms": ms_of(lambda key: "multi_tensor_apply" in key),
             "top": [{"kernel": e.key[:90],
                      "ms": e.self_device_time_total / n / 1e3,
                      "calls": e.count / n} for e in top]}
@@ -240,7 +300,8 @@ def phase_rmsnorm() -> dict:
              rmsnorm_case(2048, 4096, torch.float32, 2, True),
              rmsnorm_case(1000, 4096, torch.bfloat16, 3, False),  # ragged
              rmsnorm_case(4, 4096, torch.bfloat16, 4, True),      # decode
-             rmsnorm_case(256, 2048, torch.float32, 5, True)]     # path (b)
+             rmsnorm_case(256, 2048, torch.float32, 5, True),     # path (b)
+             rmsnorm_case(4096, 2048, torch.bfloat16, 6, True)]   # path (c)
     return {"cases": cases}
 
 
@@ -293,13 +354,166 @@ def phase_flash() -> dict:
              flash_case(1, 32, 8, 2048, 128, bf, False, 3, True),
              flash_case(1, 32, 8, 1000, 128, bf, True, 4, False),  # odd S
              flash_case(1, 16, 8, 2048, 128, f32, True, 5, True),
-             flash_case(1, 16, 8, 256, 128, f32, True, 6, True)]  # path (b)
+             flash_case(1, 16, 8, 256, 128, f32, True, 6, True),  # path (b)
+             flash_case(2, 16, 8, 2048, 128, bf, True, 7, True)]  # path (c)
+    return {"cases": cases}
+
+
+def fwd_bwd_ms(fwd, args, grad) -> tuple:
+    """Device ms of one call of a differentiable library function: the
+    forward alone, and the forward with its backward (torch.autograd.grad
+    of the output against ``grad``), each captured into a CUDA graph as
+    in :func:`time_ms`. Their difference is the backward's time."""
+    def both(*a):
+        leaves = [t.detach().requires_grad_() for t in a]
+        torch.autograd.grad(fwd(*leaves), leaves, grad)
+
+    sets = input_sets(args)
+    return time_ms(fwd, sets, iters=8), time_ms(both, sets, iters=8)
+
+
+def rmsnorm_bwd_case(rows: int, d: int, dtype, seed: int,
+                     timed: bool) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+    w = torch.rand(d, generator=g, device="cuda") + 0.5
+    dy = torch.randn(rows, d, generator=g, device="cuda").to(dtype)
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    want_dx, want_dw = rmsnorm_bwd_reference(x, w, dy)
+    what = f"rmsnorm_bwd {rows}x{d} {dtype}"
+    res = {"rows": rows, "d": d, "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": max_err(dx, want_dx, *TOL[("rmsnorm", dtype)],
+                                  what + " dx"),
+           "dw_max_abs_err": max_err(dw, want_dw, *TOL[("dw", None)],
+                                     what + " dw")}
+    again = rmsnorm_bwd(x, w, dy)
+    require(torch.equal(again[0], dx) and torch.equal(again[1], dw),
+            what + ": two calls differ")
+    res["deterministic"] = True
+    if timed:
+        elt = x.element_size()
+        sets = input_sets((x, w, dy), out_bytes=x.numel() * elt)
+        lib_f, lib_fb = fwd_bwd_ms(
+            lambda a, b: F.rms_norm(a, (d,), b, 1e-5), (x, w.to(dtype)), dy)
+        res.update(
+            ms=time_ms(lambda a, b, c: rmsnorm_bwd(a, b, c), sets),
+            plain_ms=time_ms(lambda a, b, c: rmsnorm_bwd_reference(a, b, c),
+                             sets),
+            library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
+            bound_ms=(3 * rows * d * elt + 8 * d) / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes")
+    return res
+
+
+def phase_rmsnorm_bwd() -> dict:
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [rmsnorm_bwd_case(4096, 2048, bf, 11, True),   # path (c)
+             rmsnorm_bwd_case(4096, 2048, f32, 12, True),
+             rmsnorm_bwd_case(1000, 2048, bf, 13, False),  # ragged
+             rmsnorm_bwd_case(1000, 2048, f32, 14, False),
+             rmsnorm_bwd_case(200, 2048, f32, 15, False)]  # train parity
+    return {"cases": cases}
+
+
+def flash_bwd_bounds(b, h, kvh, s, d, causal, dtype) -> dict:
+    """Bound of each backward kernel: 8·D (K4) and 6·D (K5) operations
+    per visible (q, k) pair per (b, h) over the dtype's peak, against
+    the bytes of q, dO, k, v, lse, delta in and its outputs out."""
+    elt = torch.finfo(dtype).bits // 8
+    pairs = s * (s + 1) // 2 if causal else s * s
+    q_bytes = b * h * s * d * elt
+    kv_bytes = b * kvh * s * d * elt
+    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * b * h * s * 4
+    out = {}
+    for name, ops_per, out_bytes in (("flash_bwd_dkv", 8, 2 * kv_bytes),
+                                     ("flash_bwd_dq", 6, q_bytes)):
+        t_ops = ops_per * d * pairs * b * h / PEAK_OPS[dtype] * 1e3
+        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    got = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    what = f"flash_bwd {(b, h, kvh, s, d)} {dtype} causal={causal}"
+    rtol, atol = TOL[("flash", dtype)]
+    res = {"shape": [b, h, kvh, s, d], "dtype": str(dtype).split(".")[-1],
+           "causal": causal}
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        res[name + "_max_abs_err"] = max_err(gt, wt, rtol, atol,
+                                             f"{what} {name}")
+    del want
+    again = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    require(all(torch.equal(a, c) for a, c in zip(again, got)),
+            what + ": two calls differ")
+    res["deterministic"] = True
+    del again, got
+    if timed:
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        sets = input_sets((q, k, v, do, lse, delta),
+                          out_bytes=2 * q.numel() * q.element_size())
+        lib_f, lib_fb = fwd_bwd_ms(
+            lambda *a: F.scaled_dot_product_attention(
+                *a, is_causal=causal, enable_gqa=True), (q, k, v), do)
+        bounds = flash_bwd_bounds(b, h, kvh, s, d, causal, dtype)
+        res.update(
+            dkv_ms=time_ms(lambda *a: flash_bwd_dkv(*a, causal=causal),
+                           sets, iters=4),
+            dq_ms=time_ms(lambda *a: flash_bwd_dq(*a, causal=causal),
+                          sets, iters=4),
+            plain_ms=time_ms(lambda *a: flash_attention_bwd_reference(
+                *a, causal=causal), [(q, k, v, out, lse, do)], iters=2),
+            library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
+            dkv_bound_ms=bounds["flash_bwd_dkv"][0],
+            dkv_bound_by=bounds["flash_bwd_dkv"][1],
+            dq_bound_ms=bounds["flash_bwd_dq"][0],
+            dq_bound_by=bounds["flash_bwd_dq"][1])
+    return res
+
+
+def phase_flash_bwd() -> dict:
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [flash_bwd_case(2, 16, 8, 2048, 128, bf, True, 21, True),  # (c)
+             flash_bwd_case(2, 16, 8, 2048, 128, bf, False, 22, True),
+             flash_bwd_case(1, 32, 8, 2048, 128, bf, True, 23, True),  # 8B
+             flash_bwd_case(1, 16, 8, 2048, 128, f32, True, 24, True),
+             flash_bwd_case(1, 16, 8, 1000, 128, bf, True, 25, False),
+             flash_bwd_case(1, 16, 8, 1000, 128, f32, False, 26, False),
+             flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, False)]
     return {"cases": cases}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:
     return {"rmsnorm_fwd": (2 * cfg.n_layers + 1) * forward_steps,
-            "flash_fwd": cfg.n_layers * prefills}
+            "flash_fwd": cfg.n_layers * prefills,
+            "rmsnorm_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def expected_train_launches(model, steps: int) -> dict:
+    """Launches of each kernel in ``steps`` train steps, read off the
+    model: every RMSNorm runs K1 forward and K2 backward, every
+    attention K3 forward and K5, K4 backward; with remat the blocks'
+    RMSNorms and attentions run their forward a second time."""
+    norms = sum(isinstance(m, llama.RMSNorm) for m in model.modules())
+    block_norms = sum(isinstance(m, llama.RMSNorm)
+                      for m in model.layers.modules())
+    attns = sum(isinstance(m, llama.Attention) for m in model.modules())
+    again = 1 if model.cfg.remat else 0
+    per_step = {"rmsnorm_fwd": norms + again * block_norms,
+                "flash_fwd": attns * (1 + again),
+                "rmsnorm_bwd": norms, "flash_bwd_dq": attns,
+                "flash_bwd_dkv": attns}
+    return {k: v * steps for k, v in per_step.items()}
 
 
 def phase_generate_8b() -> dict:
@@ -362,8 +576,9 @@ def phase_generate_8b() -> dict:
 
 def step_breakdown(model, prompt, toks) -> dict:
     """Where a prefill and a decode step of path (a) spend their time:
-    host wall per step (eager, synchronised) against the card's busy
-    time per step from the profiler; idle share = 1 - busy / wall."""
+    host wall per step (eager, synchronised, no profiler), and the
+    card's busy time against the wall time of the same profiled steps
+    (idle share = 1 - busy / profiled wall)."""
     b, p = prompt.shape
     cfg = model.cfg
     with torch.inference_mode():
@@ -380,16 +595,8 @@ def step_breakdown(model, prompt, toks) -> dict:
         decode_wall = eager_ms(decode, 10)
         decode_prof = profile_steps(decode, 3)
 
-    def idle(wall, prof):
-        busy = prof["device_ms"]
-        return None if busy is None else max(0.0, 1.0 - busy / wall)
-
-    return {"prefill_step": {"wall_ms": prefill_wall,
-                             "idle_share": idle(prefill_wall, prefill_prof),
-                             **prefill_prof},
-            "decode_step": {"wall_ms": decode_wall,
-                            "idle_share": idle(decode_wall, decode_prof),
-                            **decode_prof}}
+    return {"prefill_step": {"wall_ms": prefill_wall, **prefill_prof},
+            "decode_step": {"wall_ms": decode_wall, **decode_prof}}
 
 
 def phase_parity(state, cfg) -> dict:
@@ -473,6 +680,123 @@ def phase_batcher(state, cfg, model) -> dict:
             "vs_generate": checks, "launches": launches}
 
 
+def model_flops(cfg, b: int, s: int) -> float:
+    """Model FLOPs of one train step, remat recompute not counted:
+    6 per matmul parameter per token (the layers' projections and the
+    LM head; the embedding is a lookup) plus the causal attention
+    products, 4·D per visible (q, k) pair per head forward, times 3 for
+    forward and backward."""
+    hd = cfg.head_dim
+    per_layer = cfg.d_model * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
+        + 3 * cfg.d_model * cfg.d_ff
+    matmul_params = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
+    pairs = s * (s + 1) // 2
+    attn = 3 * 4 * hd * pairs * cfg.n_heads * b * cfg.n_layers
+    return 6.0 * matmul_params * b * s + attn
+
+
+def phase_train_1b() -> dict:
+    cfg = llama.LLAMA3_1B
+    b, s, steps = 2, 2048, 4
+    trainer = Trainer(cfg, remat=True, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.step(tokens)]                   # warm
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    _native.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(tokens))          # float() syncs
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _native.launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = expected_train_launches(trainer.model, steps)
+    require(launches == want, f"path (c) launches {launches} != {want}")
+    per_step = {k: v // steps for k, v in launches.items()}
+    L = cfg.n_layers
+    require(per_step == {"rmsnorm_fwd": 4 * L + 1, "flash_fwd": 2 * L,
+                         "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
+                         "flash_bwd_dkv": L},
+            f"path (c) launches per step {per_step}")
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+
+    prof = profile_steps(lambda: trainer.step(tokens), 1)
+    mean_ms = float(np.mean(step_ms))
+    flops = model_flops(cfg, b, s)
+    del trainer
+    torch.cuda.empty_cache()
+    return {"config": cfg.name + "/bf16/remat", "batch": b, "seq": s,
+            "lr": 3e-4, "weight_decay": 0.1, "warm_step_s": warm_s,
+            "step_ms": step_ms, "step_ms_mean": mean_ms,
+            "tokens_per_s": b * s / (mean_ms / 1e3),
+            "model_tflop_per_step": flops / 1e12,
+            "mfu_formula": "(6*matmul_params*B*S + 12*D*H*L*B*S(S+1)/2) "
+                           "/ (step_s * 989e12), remat not counted",
+            "mfu": flops / (mean_ms / 1e3) / BF16_PEAK,
+            "peak_mem_gb": peak / 1e9, "losses": losses,
+            "launches": launches, "launches_per_step": per_step,
+            "profiled_step": prof}
+
+
+def phase_train_parity(state, cfg) -> dict:
+    """llama3-1b f32, one Trainer step on the card and on the CPU from
+    the same weights: loss, every gradient, then every parameter."""
+    b, s, lr = 1, 200, 3e-4
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (b, s + 1)))
+    gpu = Trainer(cfg, device="cuda", params=state, learning_rate=lr)
+    loss_g = gpu.step(tokens)
+    cpu = Trainer(cfg, device="cpu", learning_rate=lr,
+                  params={k: v.cpu() for k, v in state.items()})
+    loss_c = cpu.step(tokens)
+    require(abs(loss_g - loss_c) <= TRAIN_LOSS_TOL,
+            f"train loss card {loss_g} vs CPU {loss_c}")
+    worst_grad, worst_param, worst_decided = 0.0, 0.0, 0.0
+    far, decided, total = 0, 0, 0
+    cpu_params = dict(cpu.model.named_parameters())
+    for name, pg in gpu.model.named_parameters():
+        pc = cpu_params[name]
+        gc = pc.grad.cuda()
+        gmax = gc.abs().max()
+        rel = float((pg.grad - gc).abs().max() / gmax.clamp_min(1e-30))
+        require(rel <= TRAIN_GRAD_TOL, f"grad {name}: rel err {rel}")
+        worst_grad = max(worst_grad, rel)
+        diff = (pg.detach() - pc.detach().cuda()).abs()
+        dmax = float(diff.max())
+        require(dmax <= 2 * lr + 1e-6, f"param {name}: max diff {dmax}")
+        worst_param = max(worst_param, dmax)
+        mask = (gc.abs() > 1e-2 * gmax) & (gc.abs() > 1e-6)
+        if bool(mask.any()):
+            dec = float(diff[mask].max())
+            require(dec <= TRAIN_DECIDED_TOL,
+                    f"param {name}: decided elements differ by {dec}")
+            worst_decided = max(worst_decided, dec)
+        decided += int(mask.sum())
+        far += int((diff > 1e-5).sum())
+        total += diff.numel()
+    require(decided > 0, "no parameter's update was decided by its gradient")
+    require(far <= total // 10000, f"{far} of {total} params differ > 1e-5")
+    del gpu, cpu
+    torch.cuda.empty_cache()
+    return {"config": cfg.name + "/f32", "batch": b, "seq": s,
+            "loss_card": loss_g, "loss_cpu": loss_c,
+            "loss_tol": TRAIN_LOSS_TOL,
+            "grad_max_rel_err": worst_grad, "grad_tol": TRAIN_GRAD_TOL,
+            "param_max_abs_diff_after_step": worst_param,
+            "param_tol": 2 * lr + 1e-6,
+            "decided_params": decided,
+            "decided_max_abs_diff": worst_decided,
+            "decided_tol": TRAIN_DECIDED_TOL,
+            "params_over_1e-5": far, "params": total}
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -483,11 +807,30 @@ def run_phase(name: str, fn, *args):
     return out if extra is None else (out, extra)
 
 
+def kernel_entry(name, replaces, by_path, case, err, ms, bound, by,
+                 **extra) -> dict:
+    """One entry of the ``kernels`` line: ``replaces`` is the TPU
+    kernel's file:line under ``rocnrdma_tpu/ops/``; ``by_path(name)``
+    gives its launches on each path."""
+    launches = by_path(name)
+    return {"name": name, "route": "cuda",
+            "source": f"rocnrdma_tpu_torch/csrc/{name}.cu",
+            "replaces": f"rocnrdma_tpu/ops/{replaces}",
+            "launches": sum(launches.values()),
+            "launches_by_path": launches, "max_abs_err": err,
+            "ms": ms, "plain_ms": case["plain_ms"], "bound_ms": bound,
+            "bound_by": by, "library_ms": case["library_ms"],
+            "shape": case.get("shape") or [case["rows"], case["d"]],
+            "dtype": case["dtype"], "verdict": "within tolerance", **extra}
+
+
 def main() -> int:
     run_phase("device", phase_device)
     run_phase("build", phase_build)
     rms = run_phase("k1_rmsnorm_vs_plain", phase_rmsnorm)
     fl = run_phase("k3_flash_vs_plain", phase_flash)
+    rms_bwd = run_phase("k2_rmsnorm_bwd_vs_plain", phase_rmsnorm_bwd)
+    fl_bwd = run_phase("k4_k5_flash_bwd_vs_plain", phase_flash_bwd)
     gen = run_phase("path_a_generate_llama3_8b", phase_generate_8b)
 
     cfg1 = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
@@ -496,28 +839,36 @@ def main() -> int:
                           state, cfg1)
     bat = run_phase("path_b_batcher_llama3_1b_f32", phase_batcher,
                     state, cfg1, model1)
+    del model1
+    torch.cuda.empty_cache()
+    train = run_phase("path_c_train_llama3_1b_bf16", phase_train_1b)
+    run_phase("train_parity_llama3_1b_f32", phase_train_parity, state, cfg1)
+
+    def by_path(name):
+        return {"a_generate": gen["launches"][name],
+                "b_batcher": bat["launches"][name],
+                "c_train": train["launches"][name]}
 
     k1, k3 = rms["cases"][0], fl["cases"][0]
-    kernels = []
-    for name, main_case, src, replaces in (
-            ("rmsnorm_fwd", k1, "rocnrdma_tpu_torch/csrc/rmsnorm_fwd.cu",
-             "rocnrdma_tpu/ops/rmsnorm.py:48"),
-            ("flash_fwd", k3, "rocnrdma_tpu_torch/csrc/flash_fwd.cu",
-             "rocnrdma_tpu/ops/attention.py:119")):
-        by_path = {"a_generate": gen["launches"][name],
-                   "b_batcher": bat["launches"][name]}
-        kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": sum(by_path.values()),
-            "launches_by_path": by_path,
-            "max_abs_err": main_case["max_abs_err"],
-            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-            "bound_ms": main_case["bound_ms"],
-            "bound_by": main_case["bound_by"],
-            "library_ms": main_case["library_ms"],
-            "shape": main_case.get("shape") or [main_case["rows"],
-                                                main_case["d"]],
-            "dtype": main_case["dtype"], "verdict": "within tolerance"})
+    k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]
+    whole = "plain_ms and library_ms are of the whole attention backward"
+    kernels = [
+        kernel_entry("rmsnorm_fwd", "rmsnorm.py:48", by_path, k1,
+                     k1["max_abs_err"], k1["ms"], k1["bound_ms"],
+                     k1["bound_by"]),
+        kernel_entry("rmsnorm_bwd", "rmsnorm.py:141", by_path, k2,
+                     max(k2["max_abs_err"], k2["dw_max_abs_err"]), k2["ms"],
+                     k2["bound_ms"], k2["bound_by"]),
+        kernel_entry("flash_fwd", "attention.py:119", by_path, k3,
+                     k3["max_abs_err"], k3["ms"], k3["bound_ms"],
+                     k3["bound_by"]),
+        kernel_entry("flash_bwd_dkv", "attention.py:275", by_path, k45,
+                     max(k45["dk_max_abs_err"], k45["dv_max_abs_err"]),
+                     k45["dkv_ms"], k45["dkv_bound_ms"],
+                     k45["dkv_bound_by"], note=whole),
+        kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
+                     k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
+                     k45["dq_bound_by"], note=whole)]
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

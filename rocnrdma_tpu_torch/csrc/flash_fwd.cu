@@ -8,11 +8,14 @@
 // 1e-30)); q head h reads kv head h / (H/KVH) in place; -1e30 masks keys
 // past the sequence and, when causal, keys after the query.
 //
-// Bound on H100: operations. A (b, h) pair costs 4*D flops per visible
-// (query, key) pair against 2*S*D*elt bytes of q/out, so at the slice's
-// S = 512..2048 and D = 128 the work sits far above the ~295 flop/byte
-// ridge: the floor is the flops over the tensor-core peak (989 TFLOP/s
-// bf16; 67 TFLOP/s for f32 outside the tensor cores).
+// Bound on H100: depends on S. A (b, h) pair costs 4*D flops per visible
+// (query, key) pair, ~2*D*S^2 causal, against (2 + 2/group)*S*D*elt
+// bytes of q, out and its share of k, v: in bf16 at D = 128 that is
+// ~0.4*S flops per byte for group 4 and ~0.33*S for group 2. So at
+// S = 512 (the 8B prefill) the kernel is bound by bytes, below the ~295
+// flop/byte ridge, and from S ~ 900 on (S = 2048 here) by operations: the
+// flops over the tensor-core peak (989 TFLOP/s bf16; 67 TFLOP/s for f32
+// outside the tensor cores).
 //
 // Design (simple and right first, scalar FMA): one block of 256 threads
 // per (b, h, tile of 64 query rows). The TPU's sequential "arbitrary" kv

@@ -1,19 +1,27 @@
-"""Llama for inference in PyTorch: prefill, KV-cache decode, generate.
+"""Llama in PyTorch: prefill, KV-cache decode, generate, and the loss
+and block remat of training.
 
-Counterpart of ``rocnrdma_tpu/models/llama.py`` (serving half; the
-trainer comes with the training slice). The math mirrors the flax
+Counterpart of ``rocnrdma_tpu/models/llama.py``; the train step lives
+in :mod:`rocnrdma_tpu_torch.parallel.trainer`. The math mirrors the flax
 modules: split-half RoPE computed in f32 and cast back, GQA, SwiGLU,
 RMSNorm with an f32 weight, bf16 parameters and activations by default
-and f32 logits.
+and f32 logits. Parameters are trainable; serving runs under
+``torch.inference_mode()``.
 
 Where the kernels run:
 
 - every RMSNorm (two per block and the final one) goes through
-  :func:`~rocnrdma_tpu_torch.ops.rmsnorm.rmsnorm`, the K1 kernel;
+  :func:`~rocnrdma_tpu_torch.ops.rmsnorm.rmsnorm`, the K1 kernel
+  forward and the K2 kernel backward;
 - the no-cache forward and the cached prefill (``pos == 0``) go through
-  :func:`~rocnrdma_tpu_torch.ops.attention.attention`, the K3 kernel —
-  the cached prefill at position 0 is the same function as the full
-  causal forward, which the JAX package's tests pin;
+  :func:`~rocnrdma_tpu_torch.ops.attention.attention`, the K3 kernel
+  forward and the K5 then K4 kernels backward — the cached prefill at
+  position 0 is the same function as the full causal forward, which the
+  JAX package's tests pin;
+- with ``LlamaConfig.remat``, the no-cache forward recomputes each block
+  in the backward (``torch.utils.checkpoint``, non-reentrant), the
+  counterpart of flax's ``nn.remat(Block)`` with the "full" policy: K1
+  and K3 then run a second time per block;
 - cached decode (``pos > 0``) keeps the plain grouped-query product
   against the cache, as the JAX package computes it outside any kernel:
   f32 scores, softmax, probs cast to the model dtype before the value
@@ -35,6 +43,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
@@ -44,7 +53,7 @@ __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_TINY", "CONFIGS",
     "rope_freqs", "apply_rope", "RMSNorm", "Attention", "MLP", "Block",
     "Llama", "init_cache", "init_params", "generate", "params_from_flax",
-    "params_to_flax",
+    "params_to_flax", "cross_entropy_loss",
 ]
 
 
@@ -61,6 +70,10 @@ class LlamaConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # Recompute each block in the backward instead of keeping its
+    # activations (no-cache forward only; decode has no backward). The
+    # JAX package's "full" remat policy; its "dots" policy is not ported.
+    remat: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -111,8 +124,7 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 class RMSNorm(nn.Module):
@@ -120,8 +132,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.eps = cfg.norm_eps
         self.weight = nn.Parameter(
-            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
-            requires_grad=False)
+            torch.ones(cfg.d_model, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rmsnorm(x, self.weight, self.eps)
@@ -251,9 +262,23 @@ class Llama(nn.Module):
                 f"sequence length {tokens.shape[-1]} exceeds "
                 f"{cfg.name}'s max_seq_len={cfg.max_seq_len}")
         x = F.embedding(tokens, self.embed)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
-            x = layer(x, self.freqs, None if cache is None else cache[i], pos)
+            if remat:
+                x = torch.utils.checkpoint.checkpoint(
+                    layer, x, self.freqs, use_reentrant=False)
+            else:
+                x = layer(x, self.freqs, None if cache is None else cache[i],
+                          pos)
         return (self.final_norm(x) @ self.lm_head).float()
+
+
+def cross_entropy_loss(logits: torch.Tensor,
+                       targets: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``targets`` (B, S) under f32
+    ``logits`` (B, S, vocab)."""
+    return F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                           targets.reshape(-1))
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_seq: Optional[int] = None,
@@ -279,12 +304,14 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     model = Llama(cfg, dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
-    for name, p in model.named_parameters():
-        if name.endswith("norm.weight"):
-            continue                          # ones, from RMSNorm
-        std = 1.0 / math.sqrt(cfg.d_model if name == "embed" else p.shape[0])
-        p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
-                            device=dev).mul_(std))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("norm.weight"):
+                continue                      # ones, from RMSNorm
+            std = 1.0 / math.sqrt(cfg.d_model if name == "embed"
+                                  else p.shape[0])
+            p.copy_(torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                                device=dev).mul_(std))
     return model.state_dict()
 
 

@@ -7,8 +7,10 @@ git ignores):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o _build/lib<name>-<hash>.so csrc/<name>.cu
 
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. :func:`build`
+The file name carries a hash of the source, of every header under
+``csrc/`` (``*.cuh``, which the sources may include) and of the flags,
+so an edited source or header is rebuilt and a stale library is never
+loaded. :func:`build`
 starts one ``nvcc`` per source, all at once. The libraries are loaded
 with ``ctypes``: every pointer and the stream are ``c_void_p``, and
 every entry returns ``cudaGetLastError()``, which :func:`check` turns
@@ -53,6 +55,12 @@ SIGNATURES = {
     "rmsnorm_fwd": ("rmsnorm_fwd", [_P, _P, _P, _I, _I, _F, _I, _P]),
     "flash_fwd": ("flash_fwd", [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                 _F, _I, _I, _P]),
+    "rmsnorm_bwd": ("rmsnorm_bwd", [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                    _F, _I, _P]),
+    "flash_bwd_dq": ("flash_bwd_dq", [_P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                      _I, _I, _I, _F, _I, _I, _P]),
+    "flash_bwd_dkv": ("flash_bwd_dkv", [_P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                        _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 
@@ -88,8 +96,11 @@ def _source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     """Where the library of ``name`` is built: keyed by a hash of its
-    source and the compiler flags."""
+    source, the headers under ``csrc/`` and the compiler flags."""
     h = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
@@ -162,6 +173,14 @@ def check(name: str, code: int) -> None:
     if code != 0:
         msg = library(name).error_string(code).decode(errors="replace")
         raise RuntimeError(f"{name}: CUDA error {code}: {msg}")
+
+
+def device_type(t: torch.Tensor, what: str) -> str:
+    """Where an op runs for ``t``: ``"cuda"`` (its kernel) or ``"cpu"``
+    (its plain version). Any other device raises."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return t.device.type
 
 
 def stream_handle(device) -> int:

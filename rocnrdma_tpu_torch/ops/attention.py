@@ -1,19 +1,27 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain
-versions.
+"""Flash attention forward and backward: the hand-written CUDA kernels
+and their plain versions.
 
-Counterpart of ``rocnrdma_tpu/ops/attention.py``. The kernel
-(``csrc/flash_fwd.cu``) replaces the Pallas forward ``_flash_kernel``;
-its note says what bounds it on an H100 and how. Layouts are the JAX
-package's: q (B, H, S, D), k/v (B, KVH, S, D), out (B, H, S, D) in q's
-dtype and lse (B, H, S, 1) in f32; q head h reads kv head
-h // (H // KVH). The two backward kernels (dK/dV and dQ) belong to
-training and are not ported yet: differentiating through the kernel
-raises.
+Counterpart of ``rocnrdma_tpu/ops/attention.py``. Three kernels, each
+with a note on what bounds it on an H100 and how:
 
-:func:`flash_attention_lse` and :func:`attention` launch the kernel for
-CUDA tensors and run :func:`flash_attention_lse_reference` only for CPU
-tensors. There is no fallback: a kernel that fails to build or launch
-raises.
+- ``csrc/flash_fwd.cu`` replaces the Pallas forward ``_flash_kernel``;
+- ``csrc/flash_bwd_dq.cu`` replaces ``_bwd_dq_kernel`` (dQ);
+- ``csrc/flash_bwd_dkv.cu`` replaces ``_bwd_dkv_kernel`` (dK and dV,
+  the GQA group summed on chip).
+
+The two backward kernels share their tile math
+(``csrc/flash_bwd_common.cuh``, the counterpart of ``_bwd_tile``).
+Layouts are the JAX package's: q (B, H, S, D), k/v (B, KVH, S, D), out
+(B, H, S, D) in q's dtype and lse (B, H, S, 1) in f32; q head h reads kv
+head h // (H // KVH). delta = rowsum(dO∘O) is a torch op, as it is plain
+``jnp`` in the JAX package.
+
+:func:`flash_attention_lse` is one ``torch.autograd.Function`` that
+dispatches on the device in both directions: CUDA tensors launch the
+kernels (forward; backward K5 then K4), CPU tensors run
+:func:`flash_attention_lse_reference` and
+:func:`flash_attention_bwd_reference`, any other device raises. There
+is no fallback: a kernel that fails to build or launch raises.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ import torch
 from . import _native
 
 __all__ = ["attention", "attention_reference", "flash_attention_lse",
-           "flash_attention_lse_reference", "NEG_INF", "HEAD_DIMS"]
+           "flash_attention_lse_reference", "flash_attention_bwd_reference",
+           "flash_attention_shard_grads", "flash_bwd_dq", "flash_bwd_dkv",
+           "NEG_INF", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -89,9 +99,39 @@ def flash_attention_lse_reference(q: torch.Tensor, k: torch.Tensor,
     return out, lse
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool, scale: Optional[float]
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def flash_attention_bwd_reference(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, out: torch.Tensor,
+                                  lse: torch.Tensor, do: torch.Tensor,
+                                  causal: bool = True,
+                                  scale: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The plain version of the backward kernels: (dq, dk, dv) in the
+    dtypes of q, k, v, from the saved ``out`` and ``lse`` and the
+    upstream ``do``, in f32 and without autograd. As ``_bwd_tile`` does,
+    it rebuilds p = exp(s − lse) with s masked to −1e30, takes
+    delta = rowsum(dO∘O), ds = p·(dO·Vᵀ − delta)·scale, and sums the GQA
+    group into dK/dV."""
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
+    g = h // kvh
+    sc = _scale(scale, d)
+    scores = _grouped_scores(q, k) * sc                 # (B,KVH,G,S,S)
+    if causal:
+        scores = scores.masked_fill(~_causal_mask(s, q.device), NEG_INF)
+    p = torch.exp(scores - lse.float().view(b, kvh, g, s, 1))
+    dof = do.float().reshape(b, kvh, g * s, d)
+    dp = (dof @ v.float().transpose(-1, -2)).view(b, kvh, g, s, s)
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    ds = p * (dp - delta.view(b, kvh, g, s, 1)) * sc
+    p2, ds2 = p.view(b, kvh, g * s, s), ds.view(b, kvh, g * s, s)
+    dv = p2.transpose(-1, -2) @ dof
+    dk = ds2.transpose(-1, -2) @ q.float().reshape(b, kvh, g * s, d)
+    dq = (ds2 @ k.float()).reshape(b, h, s, d)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash attention takes 4-D q, k, v "
                          "(B, H, S, D) / (B, KVH, S, D)")
@@ -111,11 +151,22 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("q, k, v must lie on one device")
     if b * h > 65535:
         raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool, scale: Optional[float]
+            ) -> Tuple[torch.Tensor, torch.Tensor,
+                       Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """``(out, lse, (q, k, v))``: the forward kernel's outputs and the
+    contiguous operands it read, which the backward reuses."""
+    _check(q, k, v)
+    b, h, s, d = q.shape
+    kvh = k.shape[1]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     if s == 0 or b == 0:
-        return out, lse
+        return out, lse, (q, k, v)
     lib = _native.library("flash_fwd")
     _native.count("flash_fwd")
     rc = lib.flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -123,33 +174,118 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        float(_scale(scale, d)), int(bool(causal)),
                        _DTYPES[q.dtype], _native.stream_handle(q.device))
     _native.check("flash_fwd", rc)
-    return out, lse
+    return out, lse, (q, k, v)
 
 
-class _FlashKernel(torch.autograd.Function):
+def _bwd_args(q, k, v, do, lse, delta):
+    """Validated, contiguous operands of the backward kernels."""
+    _check(q, k, v)
+    b, h, s, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match "
+                         f"q {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (b, h, s, 1) or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError(f"{name} must be ({b}, {h}, {s}, 1) float32 on "
+                             f"{q.device}, got {tuple(t.shape)} {t.dtype}")
+    return tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,
+                 scale: Optional[float] = None) -> torch.Tensor:
+    """dQ by the K5 kernel (CUDA tensors only), from lse and
+    delta = rowsum(dO∘O)."""
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    b, h, s, d = q.shape
+    dq = torch.empty_like(q)
+    if s == 0 or b == 0:
+        return dq
+    lib = _native.library("flash_bwd_dq")
+    _native.count("flash_bwd_dq")
+    rc = lib.flash_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                          dq.data_ptr(), b, h, k.shape[1], s, d,
+                          float(_scale(scale, d)), int(bool(causal)),
+                          _DTYPES[q.dtype], _native.stream_handle(q.device))
+    _native.check("flash_bwd_dq", rc)
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool = True,
+                  scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dK, dV) by the K4 kernel (CUDA tensors only), the GQA group
+    summed inside the kernel."""
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    b, h, s, d = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if s == 0 or b == 0:
+        return dk, dv
+    lib = _native.library("flash_bwd_dkv")
+    _native.count("flash_bwd_dkv")
+    rc = lib.flash_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                           dk.data_ptr(), dv.data_ptr(), b, h, k.shape[1],
+                           s, d, float(_scale(scale, d)), int(bool(causal)),
+                           _DTYPES[q.dtype], _native.stream_handle(q.device))
+    _native.check("flash_bwd_dkv", rc)
+    return dk, dv
+
+
+def flash_attention_shard_grads(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, out: torch.Tensor,
+                                lse: torch.Tensor, do: torch.Tensor,
+                                causal: bool = True,
+                                scale: Optional[float] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """(dq, dk, dv) of one (q shard, kv shard) pair against the GLOBAL
+    softmax: ``out``/``lse`` are the merged output and log-sum-exp over
+    the full sequence, so p = exp(s − lse) and delta = rowsum(dO∘out)
+    give this pair's share of the exact gradient (the identity ring
+    attention's backward sums over kv shards). The same backward the
+    autograd function runs: CUDA tensors launch K5 then K4, CPU tensors
+    run :func:`flash_attention_bwd_reference`."""
+    if _native.device_type(q, "flash attention") == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                             scale)
+    do = do.contiguous()
+    delta = (do.float() * out.float()).sum(-1, keepdim=True)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = _launch(q, k, v, causal, scale)
+        if _native.device_type(q, "flash attention") == "cpu":
+            out, lse = flash_attention_lse_reference(q, k, v, causal, scale)
+        else:
+            # Save the contiguous copies the kernel read (the model passes
+            # transposed views), so the backward does not copy them again.
+            out, lse, (q, k, v) = _launch(q, k, v, causal, scale)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
-        raise NotImplementedError(
-            "flash attention backward kernels (the Pallas _bwd_dkv_kernel "
-            "and _bwd_dq_kernel) are not ported yet")
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_shard_grads(q, k, v, out, lse, g_out,
+                                                 ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Forward returning ``(out, lse)``. CUDA tensors: the hand-written
-    kernel. CPU tensors: :func:`flash_attention_lse_reference`."""
-    if q.device.type == "cpu":
-        return flash_attention_lse_reference(q, k, v, causal, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention: unsupported device {q.device}")
-    return _FlashKernel.apply(q, k, v, causal, scale)
+    """Forward returning ``(out, lse)``, differentiable in q, k, v
+    through out (lse carries no gradient). CUDA tensors: the
+    hand-written kernels. CPU tensors: the plain versions."""
+    return _FlashAttention.apply(q, k, v, causal, scale)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

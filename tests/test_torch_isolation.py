@@ -3,8 +3,8 @@
 - ``rocnrdma_tpu_torch`` and every submodule import in a fresh process
   where ``jax`` is unimportable and an import hook refuses
   ``rocnrdma_tpu`` and its submodules;
-- no module of the port, and not ``chip_smoke.py``, names JAX, flax or
-  the JAX package in an import statement;
+- no module of the port, not ``chip_smoke.py`` and not the port's
+  example names JAX, flax or the JAX package in an import statement;
 - on a host without CUDA, every entry point called without ``device=``
   raises instead of running on the CPU, and ``chip_smoke.py`` exits
   non-zero without printing its result — in the repo, and alone in an
@@ -24,6 +24,7 @@ import torch
 
 import rocnrdma_tpu_torch
 from rocnrdma_tpu_torch.models import llama as tllama
+from rocnrdma_tpu_torch.parallel.trainer import Trainer
 from rocnrdma_tpu_torch.serving import model as tmodel
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher
 
@@ -89,7 +90,7 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py"]))
+    + ["chip_smoke.py", "examples/train_single_chip_torch.py"]))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
@@ -114,6 +115,7 @@ ENTRY_POINTS = {
     "init_cache": lambda: tllama.init_cache(tllama.LLAMA_TINY, 1),
     "generate": _cpu_generate_without_device,
     "PagedDecoder": lambda: tmodel.PagedDecoder(_serve_cfg()),
+    "Trainer": lambda: Trainer("llama-tiny"),
     "ContinuousBatcher": lambda: ContinuousBatcher(
         None, tmodel.pack_pages(_serve_cfg(),
                                 tmodel.toy_param_tree(_serve_cfg())),

@@ -7,19 +7,26 @@ so it runs on the card's host as it is:
 
     python -m pytest tests/test_torch_kernels.py -m gpu
 
-Tolerances: f32 outputs to 1e-5 (rmsnorm) and 2e-4 (attention, whose
-sums run in another order); bf16 outputs to one bf16 step (2^-7
-relative) for rmsnorm and 2e-2 for attention, whose bf16 output rounds
-an f32 result computed in another order; lse is f32 in both dtypes.
+Tolerances: f32 outputs to 1e-5 (rmsnorm forward and dx) and 2e-4
+(attention forward and backward, whose sums run in another order); bf16
+outputs to one bf16 step (2^-7 relative) for rmsnorm and 2e-2 for
+attention, whose bf16 outputs round an f32 result computed in another
+order; lse is f32 in both dtypes; dw is an f32 sum over all rows, taken
+in another order, to rtol 1e-4 and atol 1e-3. Each backward kernel is
+also bitwise deterministic: two calls on the same inputs give equal
+outputs.
 """
 
 import pytest
 import torch
 
 from rocnrdma_tpu_torch.ops import _native
-from rocnrdma_tpu_torch.ops.attention import (flash_attention_lse,
-                                              flash_attention_lse_reference)
-from rocnrdma_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_reference
+from rocnrdma_tpu_torch.ops.attention import (
+    flash_attention_bwd_reference, flash_attention_lse,
+    flash_attention_lse_reference, flash_attention_shard_grads)
+from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                            rmsnorm_bwd_reference,
+                                            rmsnorm_reference)
 
 
 @pytest.fixture
@@ -69,3 +76,80 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, b, h, kvh, s, d):
     torch.testing.assert_close(out.float(), want_o.float(), rtol=tol,
                                atol=tol)
     torch.testing.assert_close(lse, want_l, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(4096, 2048), (1000, 2048), (37, 4096),
+                                    (5, 64), (3, 136), (300, 1032)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, d, offset):
+    """Widths of 1, 2 and 4 vectors per thread (and a partial last one);
+    ``offset`` 1 hands in x and dy as views that start one element into
+    their storage, which the wrapper must copy to align its vector
+    loads."""
+    g = torch.Generator(device=cuda).manual_seed(rows * 7 + d)
+    x, dy = (torch.randn(rows * d + offset, generator=g, device=cuda)
+             .to(dtype)[offset:].view(rows, d) for _ in range(2))
+    w = torch.rand(d, generator=g, device=cuda) + 0.5
+    _native.reset_launches()
+    dx, dw = rmsnorm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert _native.launches()["rmsnorm_bwd"] == 1
+    want_dx, want_dw = rmsnorm_bwd_reference(x, w, dy)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-3)
+    again = rmsnorm_bwd(x, w, dy)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("b,h,kvh,s,d", [(1, 8, 2, 300, 128),
+                                         (2, 4, 2, 37, 16),
+                                         (1, 4, 4, 64, 64),
+                                         (1, 2, 1, 130, 32)])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, b, h, kvh, s,
+                                       d):
+    g = torch.Generator(device=cuda).manual_seed(s * 3 + d)
+    q = torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(b, kvh, s, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(b, kvh, s, d, generator=g, device=cuda).to(dtype)
+    do = torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+    out, lse = flash_attention_lse_reference(q, k, v, causal=causal)
+    _native.reset_launches()
+    got = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    counts = _native.launches()
+    assert counts["flash_bwd_dq"] == 1 and counts["flash_bwd_dkv"] == 1
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape, name
+        assert torch.isfinite(gt.float()).all(), name
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=tol,
+                                   atol=tol, msg=name)
+    again = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    for a, b_ in zip(again, got):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_autograd_on_the_card_launches_every_backward_kernel(cuda):
+    x = torch.randn(2, 64, 128, device=cuda, requires_grad=True)
+    w = torch.ones(128, device=cuda, requires_grad=True)
+    _native.reset_launches()
+    y = rmsnorm(x, w)
+    b, s = 2, 64
+    q = y.view(b, s, 4, 32).transpose(1, 2)
+    kv = y[..., :64].reshape(b, s, 2, 32).transpose(1, 2)
+    flash_attention_lse(q, kv, kv)[0].float().sum().backward()
+    torch.cuda.synchronize()
+    assert _native.launches() == {"rmsnorm_fwd": 1, "flash_fwd": 1,
+                                  "rmsnorm_bwd": 1, "flash_bwd_dq": 1,
+                                  "flash_bwd_dkv": 1}
+    assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()

@@ -8,6 +8,7 @@ card: tests/test_torch_kernels.py holds each against its plain version
 there.
 """
 
+import importlib
 import os
 
 import jax.numpy as jnp
@@ -30,6 +31,12 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _normal(seed, shape, dtype=np.float32):
     return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _rmsnorm_module():
+    # ``rocnrdma_tpu_torch.ops.rmsnorm`` names the function once the
+    # package is imported; the module is reached through sys.modules.
+    return importlib.import_module("rocnrdma_tpu_torch.ops.rmsnorm")
 
 
 def _bf16_np(t: torch.Tensor) -> np.ndarray:
@@ -105,8 +112,9 @@ def test_attention_reference_matches_jax(causal):
 
 
 def test_cpu_wrappers_launch_no_kernel():
-    """On CPU tensors the wrappers take the plain versions and count no
-    launch; the counters are plain integers that reset to zero."""
+    """On CPU tensors the wrappers take the plain versions, forward and
+    backward, and count no launch; the counters are plain integers that
+    reset to zero, one per kernel of the five."""
     _native.reset_launches()
     x, w = torch.randn(3, 16), torch.rand(16)
     assert torch.equal(rmsnorm(x, w), rmsnorm_reference(x, w))
@@ -114,7 +122,32 @@ def test_cpu_wrappers_launch_no_kernel():
     for got, want in zip(flash_attention_lse(q, k, k),
                          flash_attention_lse_reference(q, k, k)):
         assert torch.equal(got, want)
-    assert _native.launches() == {"rmsnorm_fwd": 0, "flash_fwd": 0}
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    rmsnorm(xg, wg).sum().backward()
+    qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+    attention(qg, kg, kg).sum().backward()
+    assert xg.grad is not None and kg.grad is not None
+    assert _native.launches() == {"rmsnorm_fwd": 0, "flash_fwd": 0,
+                                  "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
+                                  "flash_bwd_dkv": 0}
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 102),
+                                     (torch.bfloat16, 100),
+                                     (torch.bfloat16, 36),
+                                     (torch.float32, 8192),
+                                     (torch.bfloat16, 8200)])
+def test_rmsnorm_bwd_kernel_refuses_widths_it_cannot_take(monkeypatch, dtype,
+                                                         d):
+    """The backward kernel holds a row as 16-byte vectors, at most 4 per
+    thread of 256: the wrapper refuses any other width before it builds
+    or launches anything."""
+    monkeypatch.setattr(_native, "library", None)
+    _native.reset_launches()
+    x = torch.randn(3, d).to(dtype)
+    with pytest.raises(ValueError, match="widths that are multiples"):
+        _rmsnorm_module()._launch_bwd(x, torch.rand(d), x, 1e-5)
+    assert _native.launches()["rmsnorm_bwd"] == 0
 
 
 # ------------------------------------------------------- build plumbing
@@ -144,3 +177,20 @@ def test_library_path_keys_source_and_flags():
     assert "arch=compute_90a,code=sm_90a" in _native.NVCC_FLAGS
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "rocnrdma_tpu_torch/_build/" in f.read().split()
+
+
+def test_library_path_keys_the_shared_header(monkeypatch, tmp_path):
+    """The backward kernels include csrc/flash_bwd_common.cuh: an edited
+    header must key a new library, or a stale one would load."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _native.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_native, "CSRC", csrc)
+    before = {n: _native.library_path(n) for n in _native.KERNELS}
+    header = csrc / "flash_bwd_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in _native.KERNELS:
+        assert _native.library_path(name) != before[name], name
+    assert '#include "flash_bwd_common.cuh"' in (
+        csrc / "flash_bwd_dq.cu").read_text()
