@@ -7,7 +7,12 @@ Builds the five CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with
 nvcc, holds each against its plain PyTorch version at its path's shapes
 (and ragged, f32/bf16, causal/full variants), shows each backward kernel
 bitwise deterministic across two calls, times each, then drives the
-serving and training paths through the entry points a user calls:
+serving and training paths through the entry points a user calls. K3
+(``flash_fwd``) and K4 (``flash_bwd_dkv``) have two instances each, a
+tensor-core one (bf16 at D 64 and 128) and a scalar one (f32, bf16 at
+D 16 and 32): every case of theirs prints the ``route`` the library
+chose, both routes are held against the plain versions, and the cases at
+the shapes of paths (a) and (c) must report the tensor-core route.
 
 - path (a): ``generate`` at llama3-8b (all 32 layers, bf16, random
   weights from ``init_params(seed=0)``), batch 4, prompt 512, 32 new
@@ -45,9 +50,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -58,7 +65,7 @@ from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
     flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_shard_grads,
-    flash_bwd_dkv, flash_bwd_dq)
+    flash_bwd_dkv, flash_bwd_dq, kernel_route)
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                             rmsnorm_bwd_reference,
                                             rmsnorm_reference)
@@ -81,6 +88,12 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 #   in f32 leaves 20x margin over the f32 error measured against f64);
 #   dw is an f32 sum over all rows taken in another order (kernel: runs
 #   of rows, then 256 partials), so rtol 1e-4 and atol 1e-3.
+# - the tensor-core route of K3 and K4 (bf16, D 64 and 128) multiplies
+#   bf16 operands into f32 sums, as the plain versions do, and rounds P
+#   (K3, K4) and dS (K4) to bf16 before their second product, which the
+#   plain versions keep in f32. Those roundings (2^-9 relative, random in
+#   sign) average out over the sums of up to S terms; measured errors
+#   stay within the bf16 tolerance above, which is unchanged.
 TOL = {("rmsnorm", torch.float32): (1e-5, 1e-5),
        ("rmsnorm", torch.bfloat16): (2 ** -7, 2 ** -7),
        ("flash", torch.float32): (2e-4, 2e-4),
@@ -263,11 +276,49 @@ def phase_device() -> dict:
             "tf32": "off (matmul and cudnn)"}
 
 
+def kernel_resources() -> dict:
+    """Registers and stack/local (spill) bytes of every kernel in the
+    built libraries, as ``cuobjdump --dump-resource-usage`` reports them
+    (names demangled by ``cu++filt``; both ship beside nvcc). A kernel
+    that raises its count with setmaxnreg reports its count at entry."""
+    bin_dir = Path(_native.nvcc()).parent
+    out = {}
+    for name in _native.KERNELS:
+        text = subprocess.run(
+            [str(bin_dir / "cuobjdump"), "--dump-resource-usage",
+             str(_native.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        found = re.findall(r"Function (\S+):\s+REG:(\d+) STACK:(\d+) "
+                           r"SHARED:\d+ LOCAL:(\d+)", text)
+        names = subprocess.run(
+            [str(bin_dir / "cu++filt")], input="\n".join(f[0] for f in found),
+            capture_output=True, text=True, timeout=60,
+            check=True).stdout.split("\n")
+        for (mangled, reg, stack, local), full in zip(found, names):
+            # "void <unnamed>::tc::k<(int)128>(args)" -> "tc::k<128>"
+            short = re.sub(r"\((?:unsigned )?(?:int|bool)\)", "", full)
+            short = re.sub(r"<unnamed>::|\(anonymous namespace\)::", "",
+                           short)
+            short = short.split("(")[0].removeprefix("void ")
+            short = short.replace("__nv_bfloat16", "bf16") or mangled
+            require(short not in out, f"two kernels named {short}")
+            out[short] = {"regs": int(reg), "stack": int(stack),
+                          "local": int(local)}
+    return out
+
+
 def phase_build() -> dict:
     secs = _native.build()
     for name in _native.KERNELS:
         _native.library(name)
-    return {"compile_s": secs}
+    res = kernel_resources()
+    # The tensor-core kernels keep their accumulators in registers; a
+    # stack frame there means spilled accumulators.
+    tc = {k: r for k, r in res.items() if k.startswith("tc::")}
+    require(len(tc) == 4 and all(r["stack"] == 0 and r["local"] == 0
+                                 for r in tc.values()),
+            f"tensor-core kernels missing or spilling: {tc}")
+    return {"compile_s": secs, "resources": res}
 
 
 def rmsnorm_case(rows: int, d: int, dtype, seed: int, timed: bool) -> dict:
@@ -315,7 +366,8 @@ def flash_bound_ms(b, h, kvh, s, d, causal, dtype) -> tuple:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
+def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed,
+               need_route=None) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
     k = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
@@ -324,9 +376,12 @@ def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
     torch.cuda.synchronize()
     want_o, want_l = flash_attention_lse_reference(q, k, v, causal=causal)
     what = f"flash {(b, h, kvh, s, d)} {dtype} causal={causal}"
+    route = kernel_route("flash_fwd", d, dtype)
+    require(need_route in (None, route),
+            f"{what}: route {route}, expected {need_route}")
     rtol, atol = TOL[("flash", dtype)]
     res = {"shape": [b, h, kvh, s, d], "dtype": str(dtype).split(".")[-1],
-           "causal": causal,
+           "causal": causal, "route": route,
            "max_abs_err": max_err(out, want_o, rtol, atol, what),
            "lse_max_abs_err": max_err(lse, want_l, *TOL[("lse", None)],
                                       what + " lse")}
@@ -347,15 +402,28 @@ def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
     return res
 
 
+TC = "tensor_core"
+
+
 def phase_flash() -> dict:
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [flash_case(4, 32, 8, 512, 128, bf, True, 1, True),   # path (a)
+    cases = [flash_case(4, 32, 8, 512, 128, bf, True, 1, True, TC),  # (a)
              flash_case(1, 32, 8, 2048, 128, bf, True, 2, True),
              flash_case(1, 32, 8, 2048, 128, bf, False, 3, True),
              flash_case(1, 32, 8, 1000, 128, bf, True, 4, False),  # odd S
              flash_case(1, 16, 8, 2048, 128, f32, True, 5, True),
              flash_case(1, 16, 8, 256, 128, f32, True, 6, True),  # path (b)
-             flash_case(2, 16, 8, 2048, 128, bf, True, 7, True)]  # path (c)
+             flash_case(2, 16, 8, 2048, 128, bf, True, 7, True, TC),  # (c)
+             # the tensor-core route at its edges: D 64 and 128, S of one
+             # row, one row past a tile, odd and long; groups 1, 2 and 4
+             flash_case(1, 8, 8, 1, 64, bf, True, 8, False, TC),
+             flash_case(1, 8, 4, 65, 64, bf, False, 9, False, TC),
+             flash_case(2, 8, 2, 1000, 64, bf, True, 10, False, TC),
+             flash_case(1, 8, 8, 2048, 64, bf, False, 11, False, TC),
+             flash_case(1, 4, 4, 65, 128, bf, True, 12, False, TC),
+             flash_case(1, 8, 2, 1, 128, bf, False, 13, False, TC),
+             # the scalar route in bf16
+             flash_case(1, 8, 4, 300, 32, bf, True, 14, False, "scalar")]
     return {"cases": cases}
 
 
@@ -435,7 +503,8 @@ def flash_bwd_bounds(b, h, kvh, s, d, causal, dtype) -> dict:
     return out
 
 
-def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
+def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
+                   need_route=None) -> dict:
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
     k = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
@@ -446,9 +515,13 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
     torch.cuda.synchronize()
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
     what = f"flash_bwd {(b, h, kvh, s, d)} {dtype} causal={causal}"
+    route = kernel_route("flash_bwd_dkv", d, dtype)
+    require(need_route in (None, route),
+            f"{what}: K4 route {route}, expected {need_route}")
     rtol, atol = TOL[("flash", dtype)]
     res = {"shape": [b, h, kvh, s, d], "dtype": str(dtype).split(".")[-1],
-           "causal": causal}
+           "causal": causal, "dkv_route": route,
+           "fwd_route": kernel_route("flash_fwd", d, dtype)}
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         res[name + "_max_abs_err"] = max_err(gt, wt, rtol, atol,
                                              f"{what} {name}")
@@ -483,13 +556,23 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed) -> dict:
 
 def phase_flash_bwd() -> dict:
     bf, f32 = torch.bfloat16, torch.float32
-    cases = [flash_bwd_case(2, 16, 8, 2048, 128, bf, True, 21, True),  # (c)
-             flash_bwd_case(2, 16, 8, 2048, 128, bf, False, 22, True),
-             flash_bwd_case(1, 32, 8, 2048, 128, bf, True, 23, True),  # 8B
+    cases = [flash_bwd_case(2, 16, 8, 2048, 128, bf, True, 21, True, TC),
+             flash_bwd_case(2, 16, 8, 2048, 128, bf, False, 22, True, TC),
+             flash_bwd_case(1, 32, 8, 2048, 128, bf, True, 23, True, TC),
              flash_bwd_case(1, 16, 8, 2048, 128, f32, True, 24, True),
              flash_bwd_case(1, 16, 8, 1000, 128, bf, True, 25, False),
              flash_bwd_case(1, 16, 8, 1000, 128, f32, False, 26, False),
-             flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, False)]
+             flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, False),
+             # K4's tensor-core route at its edges (see phase_flash)
+             flash_bwd_case(1, 4, 4, 1, 64, bf, True, 28, False, TC),
+             flash_bwd_case(1, 8, 4, 65, 64, bf, False, 29, False, TC),
+             flash_bwd_case(1, 8, 2, 1000, 64, bf, True, 30, False, TC),
+             flash_bwd_case(1, 8, 8, 2048, 64, bf, False, 31, False, TC),
+             flash_bwd_case(1, 4, 4, 65, 128, bf, True, 32, False, TC),
+             flash_bwd_case(1, 8, 2, 1, 128, bf, False, 33, False, TC),
+             # K4's scalar route in bf16
+             flash_bwd_case(1, 4, 2, 130, 32, bf, True, 34, False,
+                            "scalar")]
     return {"cases": cases}
 
 
@@ -849,7 +932,7 @@ def main() -> int:
                 "b_batcher": bat["launches"][name],
                 "c_train": train["launches"][name]}
 
-    k1, k3 = rms["cases"][0], fl["cases"][0]
+    k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]
     whole = "plain_ms and library_ms are of the whole attention backward"
     kernels = [
@@ -861,11 +944,15 @@ def main() -> int:
                      k2["bound_ms"], k2["bound_by"]),
         kernel_entry("flash_fwd", "attention.py:119", by_path, k3,
                      k3["max_abs_err"], k3["ms"], k3["bound_ms"],
-                     k3["bound_by"]),
+                     k3["bound_by"], instance=k3["route"],
+                     path_c={key: k3c[key] for key in (
+                         "shape", "route", "max_abs_err", "ms", "bound_ms",
+                         "bound_by", "library_ms")}),
         kernel_entry("flash_bwd_dkv", "attention.py:275", by_path, k45,
                      max(k45["dk_max_abs_err"], k45["dv_max_abs_err"]),
                      k45["dkv_ms"], k45["dkv_bound_ms"],
-                     k45["dkv_bound_by"], note=whole),
+                     k45["dkv_bound_by"], note=whole,
+                     instance=k45["dkv_route"]),
         kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
                      k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
                      k45["dq_bound_by"], note=whole)]

@@ -3,8 +3,8 @@
 // rocnrdma_tpu/ops/attention.py:_bwd_tile, so that the two kernels cannot
 // rebuild the softmax, its mask or its scale differently.
 //
-// A block of kThreads threads works on one (kBQ query rows) x (kBK key
-// rows) tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns tile
+// In the scalar kernels a block of kThreads threads works on one (kBQ
+// query rows) x (kBK key rows) tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns tile
 // rows ty + 16 * i (i < 4) and tile columns tx + 16 * j (j < 4). Tiles
 // live in shared memory in f32, rows padded by one float so that the
 // column walks below hit distinct banks.
@@ -60,15 +60,30 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-// One tile of the softmax gradient (the body of _bwd_tile): with
-// s = scale * Q K^T and dp = dO V^T,
-//   p  = exp(s - lse)                  (0 where masked),
+// The per-element rule of _bwd_tile, the one place both backward
+// kernels take it from (K5's softmax_grad_tile below, K4's fragment code
+// in flash_bwd_dkv.cu): a (query qi, key kj) pair is visible when both lie
+// inside the sequence and, when causal, the key does not follow the query
+// (a query row at or past S is masked whole, so rows beyond the sequence
+// contribute nothing; the JAX package gets the same by padding dO with
+// zeros); with s = q . k and dp = dO . v,
+//   p  = exp(s * scale - lse)          (0 where not visible),
 //   ds = p * (dp - delta) * scale.
-// A key is masked when it lies past S or, when causal, after the query;
-// a query row at or past S is masked whole, so rows beyond the sequence
-// contribute nothing (the JAX package gets the same by padding dO with
-// zeros). Writes p (when P is not null) and ds into padded [kBQ][kBK + 1]
-// shared tiles.
+__device__ __forceinline__ bool bwd_visible(int qi, int kj, int S,
+                                            int causal) {
+  return qi < S && kj < S && (!causal || kj <= qi);
+}
+__device__ __forceinline__ float bwd_p(float s, float scale, float lse) {
+  return expf(s * scale - lse);
+}
+__device__ __forceinline__ float bwd_ds(float p, float dp, float delta,
+                                        float scale) {
+  return p * (dp - delta) * scale;
+}
+
+// One tile of the softmax gradient (the body of _bwd_tile) by the rule
+// above, for the scalar kernels: writes p (when P is not null) and ds into
+// padded [kBQ][kBK + 1] shared tiles.
 template <int HD>
 __device__ __forceinline__ void softmax_grad_tile(
     const float* Qs, const float* dOs, const float* Ks, const float* Vs,
@@ -110,10 +125,10 @@ __device__ __forceinline__ void softmax_grad_tile(
     for (int j = 0; j < 4; ++j) {
       const int c = tx + 16 * j;
       const int kj = k0 + c;
-      const bool ok = qi < S && kj < S && (!causal || kj <= qi);
-      const float p = ok ? expf(s[i][j] * scale - l) : 0.f;
+      const float p =
+          bwd_visible(qi, kj, S, causal) ? bwd_p(s[i][j], scale, l) : 0.f;
       if (P != nullptr) P[r * (kBK + 1) + c] = p;
-      dS[r * (kBK + 1) + c] = p * (dp[i][j] - dl) * scale;
+      dS[r * (kBK + 1) + c] = bwd_ds(p, dp[i][j], dl, scale);
     }
   }
 }

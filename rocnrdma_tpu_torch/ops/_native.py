@@ -19,6 +19,12 @@ into an exception.
 Importing this module compiles nothing and needs no compiler: a host
 without ``nvcc`` fails only when a kernel is first launched.
 
+Route queries: ``flash_fwd`` and ``flash_bwd_dkv`` have two instances
+each, a tensor-core one (bf16 at D 64 and 128) and a scalar one (f32,
+and bf16 at D 16 and 32); their libraries export ``<entry>_route(D,
+dtype)``, the instance the entry launches, from the same dispatch code
+(:func:`route`).
+
 Launch counters: each wrapper calls :func:`count` once where it launches
 its kernel and nowhere else, so a run can show which kernels its path
 went through (:func:`launches`, :func:`reset_launches`).
@@ -63,6 +69,11 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _F, _I, _I, _P]),
 }
 KERNELS = tuple(SIGNATURES)
+# Kernels with more than one instance, and the C function that names the
+# one their entry launches for (D, dtype).
+ROUTES = {"flash_fwd": "flash_fwd_route",
+          "flash_bwd_dkv": "flash_bwd_dkv_route"}
+ROUTE_NAMES = {1: "tensor_core", 0: "scalar"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -162,10 +173,25 @@ def library(name: str) -> ctypes.CDLL:
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        if name in ROUTES:
+            rt = getattr(lib, ROUTES[name])
+            rt.argtypes = [_I, _I]
+            rt.restype = ctypes.c_int
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
         _libs[name] = lib
         return lib
+
+
+def route(name: str, d: int, dtype_code: int) -> str:
+    """The instance of ``name`` that its entry launches for head dim
+    ``d`` and dtype code ``dtype_code`` (0 f32, 1 bf16): "tensor_core"
+    or "scalar". Raises for a pair the entry refuses."""
+    code = getattr(library(name), ROUTES[name])(d, dtype_code)
+    if code not in ROUTE_NAMES:
+        raise ValueError(f"{name} takes no instance for D={d}, "
+                         f"dtype code {dtype_code}")
+    return ROUTE_NAMES[code]
 
 
 def check(name: str, code: int) -> None:

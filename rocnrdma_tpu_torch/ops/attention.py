@@ -9,8 +9,11 @@ with a note on what bounds it on an H100 and how:
 - ``csrc/flash_bwd_dkv.cu`` replaces ``_bwd_dkv_kernel`` (dK and dV,
   the GQA group summed on chip).
 
-The two backward kernels share their tile math
-(``csrc/flash_bwd_common.cuh``, the counterpart of ``_bwd_tile``).
+The two backward kernels share their per-element rule
+(``csrc/flash_bwd_common.cuh``, the counterpart of ``_bwd_tile``). K3
+and K4 run on the tensor cores (wgmma on TMA-fed tiles) for bf16 at
+D 64 and 128, and as scalar kernels for f32 and bf16 at D 16 and 32;
+:func:`kernel_route` names the instance.
 Layouts are the JAX package's: q (B, H, S, D), k/v (B, KVH, S, D), out
 (B, H, S, D) in q's dtype and lse (B, H, S, 1) in f32; q head h reads kv
 head h // (H // KVH). delta = rowsum(dO∘O) is a torch op, as it is plain
@@ -36,7 +39,7 @@ from . import _native
 __all__ = ["attention", "attention_reference", "flash_attention_lse",
            "flash_attention_lse_reference", "flash_attention_bwd_reference",
            "flash_attention_shard_grads", "flash_bwd_dq", "flash_bwd_dkv",
-           "NEG_INF", "HEAD_DIMS"]
+           "kernel_route", "NEG_INF", "HEAD_DIMS"]
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
@@ -153,6 +156,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"B*H={b * h} exceeds the kernel's grid limit")
 
 
+def kernel_route(kernel: str, d: int, dtype: torch.dtype) -> str:
+    """"tensor_core" or "scalar": the instance of ``kernel``
+    ("flash_fwd" or "flash_bwd_dkv") that launches for head dim ``d``
+    and ``dtype``, as the built library's dispatch decides it."""
+    return _native.route(kernel, d, _DTYPES[dtype])
+
+
+def _operand(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned, as the kernels' TMA loads
+    need (a contiguous view may start inside its storage)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool, scale: Optional[float]
             ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -162,7 +179,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v)
     b, h, s, d = q.shape
     kvh = k.shape[1]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _operand(q), _operand(k), _operand(v)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s, 1), dtype=torch.float32, device=q.device)
     if s == 0 or b == 0:
@@ -178,7 +195,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_args(q, k, v, do, lse, delta):
-    """Validated, contiguous operands of the backward kernels."""
+    """Validated, contiguous, aligned operands of the backward
+    kernels."""
     _check(q, k, v)
     b, h, s, _ = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
@@ -189,7 +207,7 @@ def _bwd_args(q, k, v, do, lse, delta):
                 or t.device != q.device):
             raise ValueError(f"{name} must be ({b}, {h}, {s}, 1) float32 on "
                              f"{q.device}, got {tuple(t.shape)} {t.dtype}")
-    return tuple(t.contiguous() for t in (q, k, v, do, lse, delta))
+    return tuple(_operand(t) for t in (q, k, v, do, lse, delta))
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool = True,

@@ -14,7 +14,13 @@ attention, whose bf16 outputs round an f32 result computed in another
 order; lse is f32 in both dtypes; dw is an f32 sum over all rows, taken
 in another order, to rtol 1e-4 and atol 1e-3. Each backward kernel is
 also bitwise deterministic: two calls on the same inputs give equal
-outputs.
+outputs. The attention forward (K3) and dK/dV (K4) kernels have a
+tensor-core route for bf16 at D 64 and 128 (wgmma on 64-row TMA tiles);
+its cases sit at the tile edges (S of 1, 63, 64, 65, 127, 129), at
+groups 1, 2 and 4, and on the transposed views the model passes, within
+the same bf16 tolerance: the route rounds P and dS to bf16 before their
+second product, which the plain versions keep in f32, and these
+roundings stay inside it.
 """
 
 import pytest
@@ -22,8 +28,9 @@ import torch
 
 from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
-    flash_attention_bwd_reference, flash_attention_lse,
-    flash_attention_lse_reference, flash_attention_shard_grads)
+    attention, flash_attention_bwd_reference, flash_attention_lse,
+    flash_attention_lse_reference, flash_attention_shard_grads,
+    kernel_route)
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                             rmsnorm_bwd_reference,
                                             rmsnorm_reference)
@@ -153,3 +160,73 @@ def test_autograd_on_the_card_launches_every_backward_kernel(cuda):
                                   "rmsnorm_bwd": 1, "flash_bwd_dq": 1,
                                   "flash_bwd_dkv": 1}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
+
+
+def _assert_bf16_close(got, want, name):
+    assert got.dtype == want.dtype and got.shape == want.shape, name
+    assert torch.isfinite(got.float()).all(), name
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2, msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 129])
+def test_flash_tensor_core_route_at_tile_edges(cuda, s, d, group, causal):
+    bf = torch.bfloat16
+    assert kernel_route("flash_fwd", d, bf) == "tensor_core"
+    assert kernel_route("flash_bwd_dkv", d, bf) == "tensor_core"
+    b, kvh = 2, 2
+    h = kvh * group
+    g = torch.Generator(device=cuda).manual_seed(s * 31 + d + group)
+    q, do = (torch.randn(b, h, s, d, generator=g, device=cuda).to(bf)
+             for _ in range(2))
+    k, v = (torch.randn(b, kvh, s, d, generator=g, device=cuda).to(bf)
+            for _ in range(2))
+    _native.reset_launches()
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    want_o, want_l = flash_attention_lse_reference(q, k, v, causal=causal)
+    _assert_bf16_close(out, want_o, "out")
+    torch.testing.assert_close(lse, want_l, rtol=2e-4, atol=2e-4)
+    got = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert _native.launches()["flash_fwd"] == 1
+    assert _native.launches()["flash_bwd_dkv"] == 1
+    want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        _assert_bf16_close(gt, wt, name)
+    again = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
+    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_tensor_core_route_takes_transposed_views(cuda, causal):
+    """q, k, v as the model makes them: projections (B, S, heads, D)
+    viewed as (B, heads, S, D), the three of them slices of one buffer;
+    forward and autograd backward against the plain versions on
+    contiguous copies."""
+    bf = torch.bfloat16
+    b, s, h, kvh, d = 2, 129, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(b, s, h + 2 * kvh, d, generator=g, device=cuda).to(bf)
+    x.requires_grad_()
+    q = x[:, :, :h].transpose(1, 2)
+    k = x[:, :, h:h + kvh].transpose(1, 2)
+    v = x[:, :, h + kvh:].transpose(1, 2)
+    assert not q.is_contiguous()
+    grad = torch.randn(b, h, s, d, generator=g, device=cuda).to(bf)
+    out = attention(q, k, v, causal=causal)
+    out.backward(grad)
+    torch.cuda.synchronize()
+    qc, kc, vc = (t.detach().contiguous() for t in (q, k, v))
+    want_o, want_l = flash_attention_lse_reference(qc, kc, vc, causal=causal)
+    _assert_bf16_close(out.detach(), want_o, "out")
+    dq, dk, dv = flash_attention_bwd_reference(qc, kc, vc, out.detach(),
+                                               want_l, grad, causal)
+    _assert_bf16_close(x.grad[:, :, :h].transpose(1, 2), dq, "dq")
+    _assert_bf16_close(x.grad[:, :, h:h + kvh].transpose(1, 2), dk, "dk")
+    _assert_bf16_close(x.grad[:, :, h + kvh:].transpose(1, 2), dv, "dv")
