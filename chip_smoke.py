@@ -8,11 +8,12 @@ nvcc, holds each against its plain PyTorch version at its path's shapes
 (and ragged, f32/bf16, causal/full variants), shows each backward kernel
 bitwise deterministic across two calls, times each, then drives the
 serving and training paths through the entry points a user calls. K3
-(``flash_fwd``) and K4 (``flash_bwd_dkv``) have two instances each, a
-tensor-core one (bf16 at D 64 and 128) and a scalar one (f32, bf16 at
-D 16 and 32): every case of theirs prints the ``route`` the library
-chose, both routes are held against the plain versions, and the cases at
-the shapes of paths (a) and (c) must report the tensor-core route.
+(``flash_fwd``), K4 (``flash_bwd_dkv``) and K5 (``flash_bwd_dq``) have
+two instances each, a tensor-core one (bf16 at D 64 and 128) and a
+scalar one (f32, bf16 at D 16 and 32): every case of theirs prints the
+``route`` the library chose, both routes are held against the plain
+versions, and the cases at the shapes of paths (a) and (c) must report
+the tensor-core route.
 
 - path (a): ``generate`` at llama3-8b (all 32 layers, bf16, random
   weights from ``init_params(seed=0)``), batch 4, prompt 512, 32 new
@@ -88,12 +89,13 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 #   in f32 leaves 20x margin over the f32 error measured against f64);
 #   dw is an f32 sum over all rows taken in another order (kernel: runs
 #   of rows, then 256 partials), so rtol 1e-4 and atol 1e-3.
-# - the tensor-core route of K3 and K4 (bf16, D 64 and 128) multiplies
-#   bf16 operands into f32 sums, as the plain versions do, and rounds P
-#   (K3, K4) and dS (K4) to bf16 before their second product, which the
-#   plain versions keep in f32. Those roundings (2^-9 relative, random in
-#   sign) average out over the sums of up to S terms; measured errors
-#   stay within the bf16 tolerance above, which is unchanged.
+# - the tensor-core route of K3, K4 and K5 (bf16, D 64 and 128)
+#   multiplies bf16 operands into f32 sums, as the plain versions do, and
+#   rounds P (K3, K4) and dS (K4, K5) to bf16 before their second
+#   product, which the plain versions keep in f32. Those roundings (2^-9
+#   relative, random in sign) average out over the sums of up to S
+#   terms; measured errors stay within the bf16 tolerance above, which
+#   is unchanged.
 TOL = {("rmsnorm", torch.float32): (1e-5, 1e-5),
        ("rmsnorm", torch.bfloat16): (2 ** -7, 2 ** -7),
        ("flash", torch.float32): (2e-4, 2e-4),
@@ -315,7 +317,7 @@ def phase_build() -> dict:
     # The tensor-core kernels keep their accumulators in registers; a
     # stack frame there means spilled accumulators.
     tc = {k: r for k, r in res.items() if k.startswith("tc::")}
-    require(len(tc) == 4 and all(r["stack"] == 0 and r["local"] == 0
+    require(len(tc) == 6 and all(r["stack"] == 0 and r["local"] == 0
                                  for r in tc.values()),
             f"tensor-core kernels missing or spilling: {tc}")
     return {"compile_s": secs, "resources": res}
@@ -516,11 +518,14 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
     what = f"flash_bwd {(b, h, kvh, s, d)} {dtype} causal={causal}"
     route = kernel_route("flash_bwd_dkv", d, dtype)
+    dq_route = kernel_route("flash_bwd_dq", d, dtype)
     require(need_route in (None, route),
             f"{what}: K4 route {route}, expected {need_route}")
+    require(need_route in (None, dq_route),
+            f"{what}: K5 route {dq_route}, expected {need_route}")
     rtol, atol = TOL[("flash", dtype)]
     res = {"shape": [b, h, kvh, s, d], "dtype": str(dtype).split(".")[-1],
-           "causal": causal, "dkv_route": route,
+           "causal": causal, "dkv_route": route, "dq_route": dq_route,
            "fwd_route": kernel_route("flash_fwd", d, dtype)}
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         res[name + "_max_abs_err"] = max_err(gt, wt, rtol, atol,
@@ -563,14 +568,15 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 16, 8, 1000, 128, bf, True, 25, False),
              flash_bwd_case(1, 16, 8, 1000, 128, f32, False, 26, False),
              flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, False),
-             # K4's tensor-core route at its edges (see phase_flash)
+             # K4's and K5's tensor-core routes at their edges (see
+             # phase_flash)
              flash_bwd_case(1, 4, 4, 1, 64, bf, True, 28, False, TC),
              flash_bwd_case(1, 8, 4, 65, 64, bf, False, 29, False, TC),
              flash_bwd_case(1, 8, 2, 1000, 64, bf, True, 30, False, TC),
              flash_bwd_case(1, 8, 8, 2048, 64, bf, False, 31, False, TC),
              flash_bwd_case(1, 4, 4, 65, 128, bf, True, 32, False, TC),
              flash_bwd_case(1, 8, 2, 1, 128, bf, False, 33, False, TC),
-             # K4's scalar route in bf16
+             # K4's and K5's scalar routes in bf16
              flash_bwd_case(1, 4, 2, 130, 32, bf, True, 34, False,
                             "scalar")]
     return {"cases": cases}
@@ -955,7 +961,8 @@ def main() -> int:
                      instance=k45["dkv_route"]),
         kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
                      k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
-                     k45["dq_bound_by"], note=whole)]
+                     k45["dq_bound_by"], note=whole,
+                     instance=k45["dq_route"])]
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -61,9 +61,10 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
 }
 
 // The per-element rule of _bwd_tile, the one place both backward
-// kernels take it from (K5's softmax_grad_tile below, K4's fragment code
-// in flash_bwd_dkv.cu): a (query qi, key kj) pair is visible when both lie
-// inside the sequence and, when causal, the key does not follow the query
+// kernels take it from (softmax_grad_tile below, for the scalar kernels;
+// the tensor-core fragment code in flash_bwd_dkv.cu and flash_bwd_dq.cu):
+// a (query qi, key kj) pair is visible when both lie inside the
+// sequence and, when causal, the key does not follow the query
 // (a query row at or past S is masked whole, so rows beyond the sequence
 // contribute nothing; the JAX package gets the same by padding dO with
 // zeros); with s = q . k and dp = dO . v,

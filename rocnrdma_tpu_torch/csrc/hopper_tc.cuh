@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core attention kernels
-// (flash_fwd.cu, K3, and flash_bwd_dkv.cu, K4): TMA tile loads into
+// (flash_fwd.cu, K3; flash_bwd_dkv.cu, K4; flash_bwd_dq.cu, K5): TMA
+// tile loads into
 // 128-byte-swizzled shared memory, mbarrier rings, shared-memory matrix
 // descriptors and warpgroup matrix multiplies (wgmma), all as inline PTX;
-// and the rule that picks between the two kernels' instances (route).
+// and the rule that picks between each kernel's two instances (route).
 //
 // Tile layout. A bf16 tile of 64 rows x D columns (D = 64 or 128, the head
 // dimension contiguous in device memory) lives in shared memory as D / 64
@@ -247,11 +248,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 
 // ----------------------------------------------------------- host side
 
-// Which instance K3 (flash_fwd) and K4 (flash_bwd_dkv) launch for a head
-// dim D and dtype (0 float32, 1 bfloat16): the tensor-core kernels take
-// bf16 at D 64 and 128; f32 (whose card-vs-CPU parity needs full f32
-// products, not TF32) and bf16 at D 16 and 32 take the scalar kernels.
-// The one dispatch rule of both libraries, exported as <entry>_route.
+// Which instance K3 (flash_fwd), K4 (flash_bwd_dkv) and K5
+// (flash_bwd_dq) launch for a head dim D and dtype (0 float32, 1
+// bfloat16): the tensor-core kernels take bf16 at D 64 and 128; f32
+// (whose card-vs-CPU parity needs full f32 products, not TF32) and bf16
+// at D 16 and 32 take the scalar kernels. The one dispatch rule of the
+// three libraries, exported as <entry>_route.
 constexpr int kRouteRefused = -1, kRouteScalar = 0, kRouteTensorCore = 1;
 
 inline int route(int D, int dtype) {

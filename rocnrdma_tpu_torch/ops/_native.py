@@ -19,7 +19,8 @@ into an exception.
 Importing this module compiles nothing and needs no compiler: a host
 without ``nvcc`` fails only when a kernel is first launched.
 
-Route queries: ``flash_fwd`` and ``flash_bwd_dkv`` have two instances
+Route queries: the three attention kernels, ``flash_fwd`` (K3),
+``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
 each, a tensor-core one (bf16 at D 64 and 128) and a scalar one (f32,
 and bf16 at D 16 and 32); their libraries export ``<entry>_route(D,
 dtype)``, the instance the entry launches, from the same dispatch code
@@ -72,7 +73,8 @@ KERNELS = tuple(SIGNATURES)
 # Kernels with more than one instance, and the C function that names the
 # one their entry launches for (D, dtype).
 ROUTES = {"flash_fwd": "flash_fwd_route",
-          "flash_bwd_dkv": "flash_bwd_dkv_route"}
+          "flash_bwd_dkv": "flash_bwd_dkv_route",
+          "flash_bwd_dq": "flash_bwd_dq_route"}
 ROUTE_NAMES = {1: "tensor_core", 0: "scalar"}
 
 _lock = threading.Lock()

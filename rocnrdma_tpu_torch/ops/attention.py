@@ -10,8 +10,8 @@ with a note on what bounds it on an H100 and how:
   the GQA group summed on chip).
 
 The two backward kernels share their per-element rule
-(``csrc/flash_bwd_common.cuh``, the counterpart of ``_bwd_tile``). K3
-and K4 run on the tensor cores (wgmma on TMA-fed tiles) for bf16 at
+(``csrc/flash_bwd_common.cuh``, the counterpart of ``_bwd_tile``). All
+three run on the tensor cores (wgmma on TMA-fed tiles) for bf16 at
 D 64 and 128, and as scalar kernels for f32 and bf16 at D 16 and 32;
 :func:`kernel_route` names the instance.
 Layouts are the JAX package's: q (B, H, S, D), k/v (B, KVH, S, D), out
@@ -158,8 +158,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def kernel_route(kernel: str, d: int, dtype: torch.dtype) -> str:
     """"tensor_core" or "scalar": the instance of ``kernel``
-    ("flash_fwd" or "flash_bwd_dkv") that launches for head dim ``d``
-    and ``dtype``, as the built library's dispatch decides it."""
+    ("flash_fwd", "flash_bwd_dkv" or "flash_bwd_dq") that launches for
+    head dim ``d`` and ``dtype``, as the built library's dispatch decides
+    it."""
     return _native.route(kernel, d, _DTYPES[dtype])
 
 

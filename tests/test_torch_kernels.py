@@ -14,13 +14,14 @@ attention, whose bf16 outputs round an f32 result computed in another
 order; lse is f32 in both dtypes; dw is an f32 sum over all rows, taken
 in another order, to rtol 1e-4 and atol 1e-3. Each backward kernel is
 also bitwise deterministic: two calls on the same inputs give equal
-outputs. The attention forward (K3) and dK/dV (K4) kernels have a
-tensor-core route for bf16 at D 64 and 128 (wgmma on 64-row TMA tiles);
-its cases sit at the tile edges (S of 1, 63, 64, 65, 127, 129), at
-groups 1, 2 and 4, and on the transposed views the model passes, within
-the same bf16 tolerance: the route rounds P and dS to bf16 before their
-second product, which the plain versions keep in f32, and these
-roundings stay inside it.
+outputs. The attention forward (K3), dK/dV (K4) and dQ (K5) kernels
+have a tensor-core route for bf16 at D 64 and 128 (wgmma on 64-row TMA
+tiles); its cases sit at the tile edges (S of 1, 63, 64, 65, 127, 129),
+at groups 1, 2 and 4, and on the transposed views the model passes,
+within the same bf16 tolerance: the route rounds P and dS to bf16 before
+their second product, which the plain versions keep in f32, and these
+roundings stay inside it. f32, and bf16 at D 16 and 32, take the scalar
+route.
 """
 
 import pytest
@@ -133,6 +134,10 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, causal, b, h, kvh, s,
     torch.cuda.synchronize()
     counts = _native.launches()
     assert counts["flash_bwd_dq"] == 1 and counts["flash_bwd_dkv"] == 1
+    route = ("tensor_core" if dtype == torch.bfloat16 and d in (64, 128)
+             else "scalar")
+    assert kernel_route("flash_bwd_dq", d, dtype) == route
+    assert kernel_route("flash_bwd_dkv", d, dtype) == route
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
     tol = 2e-4 if dtype == torch.float32 else 2e-2
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
@@ -178,6 +183,7 @@ def test_flash_tensor_core_route_at_tile_edges(cuda, s, d, group, causal):
     bf = torch.bfloat16
     assert kernel_route("flash_fwd", d, bf) == "tensor_core"
     assert kernel_route("flash_bwd_dkv", d, bf) == "tensor_core"
+    assert kernel_route("flash_bwd_dq", d, bf) == "tensor_core"
     b, kvh = 2, 2
     h = kvh * group
     g = torch.Generator(device=cuda).manual_seed(s * 31 + d + group)
@@ -195,11 +201,13 @@ def test_flash_tensor_core_route_at_tile_edges(cuda, s, d, group, causal):
     torch.cuda.synchronize()
     assert _native.launches()["flash_fwd"] == 1
     assert _native.launches()["flash_bwd_dkv"] == 1
+    assert _native.launches()["flash_bwd_dq"] == 1
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         _assert_bf16_close(gt, wt, name)
     again = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
-    assert torch.equal(again[1], got[1]) and torch.equal(again[2], got[2])
+    for name, a, g in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, g), name
 
 
 @pytest.mark.gpu

@@ -179,6 +179,20 @@ def test_library_path_keys_source_and_flags():
         assert "rocnrdma_tpu_torch/_build/" in f.read().split()
 
 
+@pytest.mark.parametrize("name", ["flash_fwd", "flash_bwd_dkv",
+                                  "flash_bwd_dq"])
+def test_attention_kernels_export_their_route(name):
+    """Each attention library exports ``<entry>_route(D, dtype)`` from the
+    one dispatch rule its entry switches on (``hopper_tc::route``), and
+    ``_native.ROUTES`` binds it: read from the sources, nothing built."""
+    assert _native.ROUTES[name] == f"{name}_route"
+    src = (_native.CSRC / f"{name}.cu").read_text()
+    assert '#include "hopper_tc.cuh"' in src
+    assert (f'extern "C" int {name}_route(int D, int dtype) {{\n'
+            f'  return hopper_tc::route(D, dtype);\n}}') in src
+    assert "switch (hopper_tc::route(D, dtype))" in src
+
+
 def test_library_path_keys_the_shared_header(monkeypatch, tmp_path):
     """The backward kernels include csrc/flash_bwd_common.cuh: an edited
     header must key a new library, or a stale one would load."""

@@ -8,13 +8,18 @@ trees can be compared on one card in one run.
 Loads ``rocnrdma_tpu_torch`` from ``--root`` (default: the tree this
 script sits in), builds its kernels and prints one JSON line:
 
-- the sha256 of K5's dQ (``flash_bwd_dq``) at the llama3-1b training
-  shape (B 2, H 16, KVH 8, S 2048, D 128, bf16, causal; path (c) of
-  ``chip_smoke.py``), with the hashes of its inputs lse and delta, so
-  that a difference in dQ can be told from one in the inputs. q, k, v,
-  dO come from ``torch.Generator(device="cuda")`` seeded 21, out and
-  lse from the plain forward (``flash_attention_lse_reference``, the
-  same code in every tree of the port), delta = rowsum(dO * out);
+- the sha256 of K5's dQ (``flash_bwd_dq``) and of K4's dK and dV
+  (``flash_bwd_dkv``) at the llama3-1b training shape (B 2, H 16, KVH 8,
+  S 2048, D 128, bf16, causal; path (c) of ``chip_smoke.py``), with the
+  hashes of their inputs lse and delta, so that a difference in an
+  output can be told from one in the inputs. q, k, v, dO come from
+  ``torch.Generator(device="cuda")`` seeded 21, out and lse from the
+  plain forward (``flash_attention_lse_reference``, the same code in
+  every tree of the port), delta = rowsum(dO * out);
+- the sha256 of K5's dQ in f32 (B 1, H 16, KVH 8, S 1000, D 128,
+  causal, seed 24), which takes the scalar route in every tree;
+- the instance K5 launches at each of the two cases (``kernel_route``;
+  "scalar" in a tree whose K5 had no other);
 - the device ms of one call of K3 (``flash_attention_lse``) at path
   (a)'s and path (c)'s shapes, and of K4 (``flash_bwd_dkv``) and K5 at
   path (c)'s, each from CUDA-graph replay of calls cycling through
@@ -76,9 +81,9 @@ def time_ms(fn, args, iters: int = 8) -> float:
     return start.elapsed_time(end) / (3 * iters)
 
 
-def inputs(b, h, kvh, s, d, seed):
+def inputs(b, h, kvh, s, d, seed, dtype=torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    return [torch.randn(*shp, generator=g, device="cuda").to(torch.bfloat16)
+    return [torch.randn(*shp, generator=g, device="cuda").to(dtype)
             for shp in ((b, h, s, d), (b, kvh, s, d), (b, kvh, s, d),
                         (b, h, s, d))]
 
@@ -92,27 +97,46 @@ def main() -> int:
     from rocnrdma_tpu_torch.ops import _native
     from rocnrdma_tpu_torch.ops.attention import (
         flash_attention_lse, flash_attention_lse_reference, flash_bwd_dkv,
-        flash_bwd_dq)
+        flash_bwd_dq, kernel_route)
 
     if not torch.cuda.is_available():
         raise SystemExit("torch_flash_compare: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
-    q, k, v, do = inputs(2, 16, 8, 2048, 128, 21)
-    out, lse = flash_attention_lse_reference(q, k, v, causal=True)
-    delta = (do.float() * out.float()).sum(-1, keepdim=True)
-    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
-    again = flash_bwd_dq(q, k, v, do, lse, delta, causal=True)
+
+    def dq_route(d, dtype):
+        if "flash_bwd_dq" not in _native.ROUTES:
+            return "scalar"
+        return kernel_route("flash_bwd_dq", d, dtype)
+
+    def backward_inputs(b, h, kvh, s, d, seed, dtype):
+        q, k, v, do = inputs(b, h, kvh, s, d, seed, dtype)
+        out, lse = flash_attention_lse_reference(q, k, v, causal=True)
+        delta = (do.float() * out.float()).sum(-1, keepdim=True)
+        return q, k, v, do, lse, delta
+
+    bwd = backward_inputs(2, 16, 8, 2048, 128, 21, torch.bfloat16)
+    q, k, v, do, lse, delta = bwd
+    dq = flash_bwd_dq(*bwd, causal=True)
+    again = flash_bwd_dq(*bwd, causal=True)
+    dk, dv = flash_bwd_dkv(*bwd, causal=True)
+    bwd32 = backward_inputs(1, 16, 8, 1000, 128, 24, torch.float32)
+    dq32 = flash_bwd_dq(*bwd32, causal=True)
     torch.cuda.synchronize()
-    bwd = (q, k, v, do, lse, delta)
     qa, ka, va, _ = inputs(4, 32, 8, 512, 128, 1)
     res = {
         "root": str(Path(args.root).resolve()),
         "package": str(Path(_native.__file__).resolve().parents[1]),
         "k5_case": {"shape": [2, 16, 8, 2048, 128], "dtype": "bfloat16",
-                    "causal": True},
+                    "causal": True,
+                    "dq_route": dq_route(128, torch.bfloat16)},
         "dq_sha256": sha(dq), "dq_sum": float(dq.double().sum()),
         "lse_sha256": sha(lse), "delta_sha256": sha(delta),
         "dq_two_calls_equal": bool(torch.equal(dq, again)),
+        "dk_sha256": sha(dk), "dv_sha256": sha(dv),
+        "k5_f32_case": {"shape": [1, 16, 8, 1000, 128], "dtype": "float32",
+                        "causal": True,
+                        "dq_route": dq_route(128, torch.float32)},
+        "dq_f32_sha256": sha(dq32), "lse_f32_sha256": sha(bwd32[4]),
         "k3_ms_path_a": time_ms(
             lambda *a: flash_attention_lse(*a, causal=True), (qa, ka, va)),
         "k3_ms_path_c": time_ms(
