@@ -32,7 +32,20 @@ the tensor-core route.
   device busy vs wall, peak memory, losses, launch counts;
 - training parity: llama3-1b in f32, batch 1, seq 200, loss and every
   parameter's gradient on the card (kernels) against the CPU (plain
-  versions), then the parameters after one AdamW step.
+  versions), then the parameters after one AdamW step;
+- the CUDA exporter: what the card and host offer for RDMA into device
+  memory (compute mode, DMA_BUF_SUPPORTED, HCAs), a dma-buf exported
+  from a 64 MiB tensor, the emu engine's answer to it, the
+  ``direct_registrable`` veto, and — where an HCA exists — a loopback
+  RDMA WRITE into the device range and its revocation;
+- the cross-slice sync: a world-2 ring of two threads on the card, each
+  rank's ~256 MB tree of f32 and bf16 CUDA tensors averaged through the
+  staged path, bitwise against (a + b) / 2 on the device;
+- path (d): ``examples/two_slice_dp_torch.py`` as two rank processes on
+  the card, llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, the
+  gradients averaged over the emu ring each step: losses, equal
+  parameter digests on both ranks after every step, launches per step
+  equal to path (c)'s, staged bytes, the grads / sync / apply split.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -51,9 +64,13 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
+import socket
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -61,6 +78,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from rocnrdma_tpu_torch.collectives.staging import staging
+from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
+from rocnrdma_tpu_torch.collectives.world import local_worlds
+from rocnrdma_tpu_torch.hbm import cuda as hcuda
+from rocnrdma_tpu_torch.hbm.registry import (HbmError, PeerClient,
+                                             RegistrationManager)
 from rocnrdma_tpu_torch.models import llama
 from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
@@ -73,6 +96,9 @@ from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
 from rocnrdma_tpu_torch.parallel.trainer import Trainer
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
+from rocnrdma_tpu_torch.transport import engine as eng
+
+REPO = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 L2_BYTES = 50 * 2 ** 20
@@ -886,6 +912,361 @@ def phase_train_parity(state, cfg) -> dict:
             "params_over_1e-5": far, "params": total}
 
 
+def compute_mode() -> str:
+    try:
+        return nvidia_smi("compute_mode")
+    except (OSError, subprocess.SubprocessError) as err:
+        return f"unknown ({err})"
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def cuda_h_enums() -> dict:
+    """The enum values hbm/cuda.py passes to libcuda, read from this
+    host's cuda.h: the run fails where they differ."""
+    text = (Path(_native.nvcc()).parent.parent / "include"
+            / "cuda.h").read_text()
+    out = {}
+    for name in ("CU_DEVICE_ATTRIBUTE_DMA_BUF_SUPPORTED",
+                 "CU_POINTER_ATTRIBUTE_MEMORY_TYPE",
+                 "CU_POINTER_ATTRIBUTE_RANGE_START_ADDR",
+                 "CU_POINTER_ATTRIBUTE_RANGE_SIZE", "CU_MEMORYTYPE_DEVICE",
+                 "CU_MEM_RANGE_HANDLE_TYPE_DMA_BUF_FD"):
+        m = re.search(rf"\b{name}\s*=\s*(0x[0-9a-fA-F]+|\d+)", text)
+        require(m is not None, f"{name} not found in cuda.h")
+        out[name] = int(m.group(1), 0)
+        require(out[name] == getattr(hcuda, name),
+                f"{name} is {out[name]} in cuda.h, "
+                f"{getattr(hcuda, name)} in hbm/cuda.py")
+    return out
+
+
+def _write_into_device(e, exporter, t, va, nbytes, checks) -> bool:
+    """Verbs: a dma-buf MR over the device range, a loopback RDMA WRITE
+    from a host MR into it, read back by torch; then release() with the
+    pin live must invalidate the MR. False where the HCA's driver
+    refuses the dma-buf (recorded, not counted as passed)."""
+    mgr = RegistrationManager(e, exporter)
+    try:
+        reg = mgr.register(va, nbytes)   # dma-buf, else the veto raises
+    except (HbmError, eng.TransportError) as err:
+        checks["verbs_write_into_hbm"] = f"not run: registration refused: " \
+                                         f"{err}"
+        mgr.close()
+        return False
+    a, b = eng.loopback_pair(e, free_port())
+    n = 1 << 20
+    src = (torch.arange(n, dtype=torch.int32) * 7 % 251).to(torch.uint8)
+    with e.reg_mr(src) as smr:
+        a.post_write(smr, 0, reg.mr.addr, reg.mr.rkey, n, wr_id=1)
+        require(a.wait(1).ok, "verbs RDMA WRITE into device memory failed")
+        torch.cuda.synchronize()
+        require(torch.equal(t[:n].cpu(), src),
+                "bytes written over RDMA differ in device memory")
+        checks["verbs_write_into_hbm"] = "ran: 1 MiB, bitwise"
+        exporter.release(va)
+        try:
+            a.post_write(smr, 0, reg.mr.addr, reg.mr.rkey, n, wr_id=2)
+            status = a.wait(2).status
+        except eng.TransportError as err:
+            status = str(err)
+        require(status != eng.WC_SUCCESS,
+                "RDMA WRITE after release() succeeded")
+        checks["release_invalidates_mr"] = f"ran: write after release -> " \
+                                           f"{status}"
+    a.close()
+    b.close()
+    mgr.close()
+    return True
+
+
+def phase_hbm_cuda_exporter() -> dict:
+    ib = Path("/sys/class/infiniband")
+    hcas = sorted(p.name for p in ib.iterdir()) if ib.is_dir() else []
+    u = os.uname()
+    res = {"kernel": f"{u.sysname} {u.release} ({u.nodename})",
+           "compute_mode": nvidia_smi("compute_mode"),
+           "PYTORCH_CUDA_ALLOC_CONF": os.environ.get(
+               "PYTORCH_CUDA_ALLOC_CONF"),
+           "hcas": hcas, "cuda_h": cuda_h_enums()}
+    checks = {}
+    supported = hcuda.dmabuf_supported(0)
+    res["dma_buf_supported"] = supported
+    nbytes = 64 << 20
+    t = torch.zeros(nbytes, dtype=torch.uint8, device="cuda")
+    exporter = hcuda.CUDAExporter()
+    va = exporter.adopt(t)
+    pinned = exporter.get_pages(va, nbytes)
+    res["page_size"] = exporter.get_page_size(va)
+    fd = None
+    if supported == 1:
+        try:
+            fd, off = exporter.export_dmabuf(pinned)
+        except HbmError as err:
+            # Raised with the driver's own reason, never hidden: the
+            # finding is recorded, and no check that needs the fd runs.
+            res["export_refused"] = str(err)
+            checks["export_dmabuf"] = (
+                "not run to an fd: the driver refused the export although "
+                f"DMA_BUF_SUPPORTED = 1: {err}")
+    if fd is not None:
+        info = Path(f"/proc/self/fdinfo/{fd}").read_text()
+        m = re.search(r"exp_name:\s*(\S+)", info)
+        require(m is not None, f"fd {fd} is not a dma-buf: {info!r}")
+        res["exp_name"], res["dmabuf_offset"] = m.group(1), off
+        checks["export_dmabuf"] = f"ran: fd with exp_name {m.group(1)}"
+        emu = eng.Engine("emu")
+        try:
+            mr = emu.reg_dmabuf_mr(fd, off, nbytes, iova=va)
+            res["emu_reg_dmabuf"] = f"registered ({mr.length} bytes)"
+            mr.deregister()
+        except eng.TransportError as err:
+            res["emu_reg_dmabuf"] = f"refused: {err}"
+        emu.close()
+    elif supported != 1:
+        try:
+            exporter.export_dmabuf(pinned)
+            require(False, "export_dmabuf succeeded with the attribute 0")
+        except HbmError as err:
+            checks["export_dmabuf"] = f"ran: refused as it must be: {err}"
+    # The veto: a device VA never becomes a direct registration.
+    emu = eng.Engine("emu")
+    mgr = RegistrationManager(emu, exporter)
+    try:
+        mgr.register(va, nbytes, prefer_dmabuf=False)
+        require(False, "a device VA was registered directly")
+    except HbmError as err:
+        require("dma-buf export is required" in str(err), str(err))
+        checks["direct_registrable_veto"] = "ran: " + str(err)
+    mgr.close()
+    emu.close()
+    exporter.put_pages(pinned)
+    verbs = None
+    if hcas and fd is not None:
+        try:
+            verbs = eng.Engine("verbs")
+        except eng.TransportError as err:
+            checks["verbs_write_into_hbm"] = \
+                f"not run: Engine('verbs') failed: {err}"
+    wrote = False
+    if verbs is not None:
+        wrote = _write_into_device(verbs, exporter, t, va, nbytes, checks)
+        verbs.close()
+    if not wrote:
+        checks.setdefault("verbs_write_into_hbm",
+                          "not run: " + ("no HCA" if not hcas else
+                                         "no dma-buf export"))
+        # No MR over device memory to revoke: show the revocation chain
+        # that would invalidate it — release() with a live pin fires it.
+        fired = []
+        client = PeerClient(exporter, invalidate_cb=fired.append)
+        ctx = client.acquire(va, nbytes)
+        client.get_pages(ctx, va, nbytes)
+        ctx.core_context = "mr"
+        exporter.release(va)
+        require(fired == ["mr"] and ctx.revoked,
+                "release() with a live pin did not revoke it")
+        checks["release_invalidates_mr"] = (
+            "not run (no MR over device memory); the revocation chain ran: "
+            "release() with a live pin fired its invalidate callback")
+    res["checks"] = checks
+    del t
+    torch.cuda.empty_cache()
+    return res
+
+
+XSLICE_SIZES = {torch.float32: (25_000_003, 7_777_777, 1, 65_537),
+                torch.bfloat16: (50_000_017, 12_345_679, 3, 4097)}
+
+
+def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
+    """World-2 ring in-process (one thread per rank), each rank's tree
+    of CUDA tensors averaged through the shim's staged path; bitwise
+    against (a + b) / 2 on the device: at world 2 the ring adds once
+    (the native bf16 fold rounds to nearest-even once, as torch's bf16
+    add does) and /2 is exact. (``device``/``sizes`` let the phase be
+    rehearsed on the CPU at a small size.)"""
+    def trees(seed):
+        out = []
+        for r in range(2):
+            g = torch.Generator(device=device).manual_seed(seed + r)
+            out.append({str(dt).split(".")[-1]: [
+                torch.randn(n, generator=g, device=device).to(dt)
+                for n in ns] for dt, ns in sizes.items()})
+        return out
+
+    on_card = device == "cuda"
+
+    tree_bytes = sum(n * torch.empty((), dtype=dt).element_size()
+                     for dt, ns in sizes.items() for n in ns)
+    worlds = local_worlds(2, free_port() + 100, spec="emu")
+    shims = [CrossSliceAllReduce(w, mean=True) for w in worlds]
+    errs = [None, None]
+
+    def run(tr):
+        def rank(r):
+            try:
+                if on_card:
+                    torch.cuda.set_device(0)
+                shims[r](tr[r])
+            except BaseException as e:  # surfaced below
+                errs[r] = e
+        ts = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join()
+        if on_card:
+            torch.cuda.synchronize()
+        for e in errs:
+            if e is not None:
+                raise e
+        return time.perf_counter() - t0
+
+    res = {"tree_bytes": tree_bytes, "channels": worlds[0].channels,
+           "leaves": {str(dt).split(".")[-1]: list(ns)
+                      for dt, ns in sizes.items()}}
+    for name, seed in (("cold", 10), ("warm", 20)):
+        tr = trees(seed)
+        want = {k: [(a + b) / 2 for a, b in zip(tr[0][k], tr[1][k])]
+                for k in tr[0]}
+        staged0 = staging.bytes
+        wall = run(tr)
+        staged = staging.bytes - staged0
+        require(staged == 2 * tree_bytes * 2,
+                f"staged {staged} bytes, want {4 * tree_bytes}")
+        for r in range(2):
+            for k in want:
+                for got, w in zip(tr[r][k], want[k]):
+                    require(torch.equal(got, w),
+                            f"rank {r} {k} leaf of {w.numel()} differs from "
+                            "(a + b) / 2")
+        split = [{k.replace("_s", "_ms"): v * 1e3
+                  for k, v in s.last_split.items()} for s in shims]
+        res[name] = {"wall_ms": wall * 1e3, "staged_bytes": staged,
+                     "split_ms_by_rank": split,
+                     "ring_bus_gb_s": tree_bytes / min(
+                         s.last_split["ring_s"] for s in shims) / 1e9}
+        del tr, want
+    res["bitwise"] = True
+    res["bus_formula"] = "tree bytes * 2(n-1)/n / ring_s, n = 2"
+    for s in shims:
+        s.close()
+    for w in worlds:
+        w.close()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res
+
+
+def grad_bytes(cfg) -> int:
+    """Bytes of one rank's gradients: the norm weights in f32, every
+    other parameter in the model dtype."""
+    norms = (2 * cfg.n_layers + 1) * cfg.d_model
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+    return (cfg.param_count() - norms) * elt + norms * 4
+
+
+def phase_two_slice_dp(c_per_step: dict, cfg=llama.LLAMA3_1B,
+                       b: int = 2, s: int = 2048, steps: int = 4,
+                       extra=()) -> dict:
+    """Path (d). Step 1 warms; steps 2.. are timed. (``cfg``, the shape
+    and ``extra`` flags let the phase be rehearsed on the CPU.)"""
+    port = free_port() + 100
+    cmd = [sys.executable, str(REPO / "examples" / "two_slice_dp_torch.py"),
+           "--world", "2", "--port", str(port), "--engine", "emu",
+           "--config", cfg.name, "--remat", "--one-batch", "--batch",
+           str(b), "--seq", str(s), "--steps", str(steps), *extra]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [open(os.path.join(tmp, f"r{r}.{k}"), "w+")
+                for r in range(2) for k in ("out", "err")]
+        procs = [subprocess.Popen(cmd + ["--rank", str(r)],
+                                  stdout=outs[2 * r], stderr=outs[2 * r + 1])
+                 for r in range(2)]
+        deadline = time.monotonic() + 480
+        try:
+            rcs = [p.wait(timeout=max(1, deadline - time.monotonic()))
+                   for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        texts = []
+        for f in outs:
+            f.seek(0)
+            texts.append(f.read())
+            f.close()
+    for r in range(2):
+        require(rcs[r] == 0,
+                f"path (d) rank {r} exited {rcs[r]} (compute mode "
+                f"{compute_mode()}): {texts[2 * r + 1][-2000:]}")
+    ranks = [[json.loads(ln) for ln in texts[2 * r].splitlines()
+              if ln.startswith("{")] for r in range(2)]
+    per = [{ln["step"]: ln for ln in lines if "step" in ln}
+           for lines in ranks]
+    require(all(sorted(p) == list(range(steps + 1)) for p in per),
+            "path (d): a rank did not report every step")
+    for k in range(steps + 1):
+        require(per[0][k]["digest"] == per[1][k]["digest"],
+                f"path (d): parameter digests differ after step {k}")
+    # CUDA gradients stage both ways; CPU ones are reduced in place.
+    want_bytes = 0 if "--cpu" in extra else 2 * grad_bytes(cfg)
+    losses = [[per[r][k]["loss"] for k in range(1, steps + 1)]
+              for r in range(2)]
+    for r in range(2):
+        require(all(np.isfinite(losses[r])), f"rank {r} losses {losses[r]}")
+        require(losses[r][-1] < losses[r][0],
+                f"rank {r} loss did not fall: {losses[r]}")
+        for k in range(1, steps + 1):
+            ln = per[r][k]
+            require(ln["launches"] == c_per_step,
+                    f"path (d) rank {r} step {k} launches {ln['launches']} "
+                    f"!= path (c)'s {c_per_step}")
+            require(ln["staged_bytes"] == want_bytes,
+                    f"path (d) staged {ln['staged_bytes']} != {want_bytes}")
+    timed = [[per[r][k] for k in range(2, steps + 1)] for r in range(2)]
+
+    def mean(key):
+        return float(np.mean([ln[key] for lines in timed for ln in lines]))
+
+    step_ms = mean("step_ms")
+    launches = {name: sum(per[r][k]["launches"][name] for r in range(2)
+                          for k in range(1, steps + 1))
+                for name in c_per_step}
+    finals = [next(ln for ln in lines if "final_digest" in ln)
+              for lines in ranks]
+    return {"config": f"{cfg.name}/{str(cfg.dtype).split('.')[-1]}/remat",
+            "ranks": 2,
+            "batch_per_rank": b, "seq": s, "engine": per[0][0]["engine"],
+            "link_tier": per[0][0]["link_tier"],
+            "steps": steps, "timed_steps": steps - 1,
+            "step_ms_by_rank": [[ln["step_ms"] for ln in lines]
+                                for lines in timed],
+            "step_ms_mean": step_ms,
+            **{f"{k}_mean": mean(k) for k in (
+                "grads_ms", "sync_ms", "apply_ms", "gather_ms", "ring_ms",
+                "scatter_ms")},
+            "staged_bytes_per_step": per[0][steps]["staged_bytes"],
+            "grad_bytes": grad_bytes(cfg),
+            "ring_bus_gb_s": (grad_bytes(cfg) / (mean("ring_ms") / 1e3) / 1e9
+                              if mean("ring_ms") > 0 else None),
+            "tokens_per_s": 2 * b * s / (step_ms / 1e3),
+            "losses": losses, "digests_equal_every_step": True,
+            "peak_mem_gb_by_rank": [f["peak_mem_gb"] for f in finals],
+            "launches_per_step_per_rank": c_per_step,
+            "launches": launches,
+            "note": "both ranks time-slice one card: grads_ms is not a "
+                    "two-card number"}
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -932,11 +1313,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = run_phase("path_c_train_llama3_1b_bf16", phase_train_1b)
     run_phase("train_parity_llama3_1b_f32", phase_train_parity, state, cfg1)
+    del state
+    torch.cuda.empty_cache()
+    run_phase("hbm_cuda_exporter", phase_hbm_cuda_exporter)
+    run_phase("xslice_sync_vs_plain", phase_xslice)
+    dp = run_phase("path_d_two_slice_dp_llama3_1b_bf16", phase_two_slice_dp,
+                   train["launches_per_step"])
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
                 "b_batcher": bat["launches"][name],
-                "c_train": train["launches"][name]}
+                "c_train": train["launches"][name],
+                "d_two_slice_dp": dp["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

@@ -14,7 +14,14 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   KV-cache decode, ``generate``) and the bridge from the JAX
   package's flax parameter tree;
 - ``serving``: the paged decoder and the continuous batcher over
-  streamed weight pages.
+  streamed weight pages;
+- ``parallel.trainer``: the train step, on one device or across
+  data-parallel slices;
+- ``transport`` (ctypes bindings to ``libtdr``, built from this
+  package's own copy of the native sources under ``native/``),
+  ``collectives`` (``RingWorld`` and the cross-slice allreduce shim) and
+  ``hbm`` (the pin registry and the ``CUDAExporter``): the RDMA data
+  path the data-parallel trainer averages its gradients over.
 
 Entry points run on the card unless the caller asks for the CPU: they
 take ``device="cuda"`` by default and raise on a host without a GPU.

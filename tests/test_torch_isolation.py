@@ -90,7 +90,8 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
-    + ["chip_smoke.py", "examples/train_single_chip_torch.py"]))
+    + ["chip_smoke.py", "examples/train_single_chip_torch.py",
+       "examples/two_slice_dp_torch.py"]))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
@@ -116,6 +117,8 @@ ENTRY_POINTS = {
     "generate": _cpu_generate_without_device,
     "PagedDecoder": lambda: tmodel.PagedDecoder(_serve_cfg()),
     "Trainer": lambda: Trainer("llama-tiny"),
+    "Trainer(cross_slice_sync=)": lambda: Trainer(
+        "llama-tiny", cross_slice_sync=lambda grads: grads),
     "ContinuousBatcher": lambda: ContinuousBatcher(
         None, tmodel.pack_pages(_serve_cfg(),
                                 tmodel.toy_param_tree(_serve_cfg())),

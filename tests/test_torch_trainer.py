@@ -192,14 +192,58 @@ def test_trainer_copies_the_given_weights():
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(cross_slice_sync=lambda g: g), "item 2"),
-    (dict(elastic=object()), "item 2"),
+    (dict(elastic=object()), "item 2b"),
     (dict(seq_parallel=object()), "item 3"),
     (dict(mesh_shape={"dp": 2, "tp": 1}), "item 5"),
 ])
 def test_unported_options_raise(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         Trainer("llama-tiny", device="cpu", **kwargs)
+
+
+def test_plain_sync_gets_the_flax_shaped_tree():
+    """A plain callable ``cross_slice_sync`` is called once per step, in
+    the ``trainer.sync`` span, with the gradients as a tree shaped like
+    ``params_to_flax``'s (``{"params": {"embed": {"embedding": g},
+    "layer_0": {"attn": {"wq": {"kernel": g}}, ...}}}``) holding the
+    parameters' own ``.grad`` tensors; what it returns becomes the
+    gradients AdamW applies, and the first call comes after
+    ``set_step_token(0)``."""
+    calls, tokens_seen = [], []
+
+    class Halve:
+        def set_step_token(self, step):
+            tokens_seen.append(step)
+
+        def __call__(self, tree):
+            calls.append(tree)
+            return jax.tree_util.tree_map(lambda g: g * 0.5, tree)
+
+    trace.reset()
+    tr = Trainer("llama-tiny", device="cpu", seed=2,
+                 cross_slice_sync=Halve())
+    ref = Trainer("llama-tiny", device="cpu", seed=2)
+    tok = torch.from_numpy(_tokens(7, (2, 9)))
+    assert tr.step(tok) == ref.step(tok)
+    params = dict(tr.model.named_parameters())
+    # The synced gradients are what AdamW applied: exactly half the
+    # plain trainer's.
+    for name, p in ref.model.named_parameters():
+        assert torch.equal(p.grad * 0.5, params[name].grad), name
+    tr.step(tok)
+    assert tokens_seen == [0] and len(calls) == 2
+    tree = calls[0]["params"]
+    want = tllama.params_to_flax(dict(tr.model.named_parameters()))
+    assert jax.tree_util.tree_structure(calls[0]) == \
+        jax.tree_util.tree_structure(want)
+    assert tree["layer_1"]["attn"]["wq"]["kernel"].shape == (64, 64)
+    # The tree holds the parameters' own .grad tensors (which the
+    # returned halves then overwrote in place).
+    got = calls[1]["params"]["layer_0"]["mlp"]["w_up"]["kernel"]
+    assert got is params["layers.0.mlp.w_up"].grad
+    assert [e[2]["step"] for e in trace.events("trainer.sync")] == [1, 2]
+    # Only the plain trainer's step ran in the fused-step span.
+    assert len(trace.events("trainer.fused_step")) == 1
 
 
 def test_cross_entropy_is_the_mean_nll():
