@@ -62,6 +62,7 @@ f32 products on the card run in full f32.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
@@ -986,6 +987,28 @@ def _write_into_device(e, exporter, t, va, nbytes, checks) -> bool:
     return True
 
 
+def raw_alloc_export_result(nbytes: int) -> int:
+    """CUresult of cuMemGetHandleForAddressRange(DMA_BUF_FD, flags 0)
+    over a raw cuMemAlloc of ``nbytes``, whole, without CUDAExporter's
+    range logic (0: an fd, closed at once)."""
+    lib = hcuda._cu()
+    lib.cuMemAlloc_v2.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    lib.cuMemFree_v2.argtypes = [ctypes.c_uint64]
+    ptr = ctypes.c_uint64()
+    rc = lib.cuMemAlloc_v2(ctypes.byref(ptr), nbytes)
+    require(rc == 0, f"cuMemAlloc({nbytes}) failed: CUresult {rc}")
+    fd = ctypes.c_int(-1)
+    try:
+        rc = lib.cuMemGetHandleForAddressRange(
+            ctypes.byref(fd), ptr.value, nbytes,
+            hcuda.CU_MEM_RANGE_HANDLE_TYPE_DMA_BUF_FD, 0)
+    finally:
+        require(lib.cuMemFree_v2(ptr.value) == 0, "cuMemFree failed")
+    if rc == 0:
+        os.close(fd.value)
+    return int(rc)
+
+
 def phase_hbm_cuda_exporter() -> dict:
     ib = Path("/sys/class/infiniband")
     hcas = sorted(p.name for p in ib.iterdir()) if ib.is_dir() else []
@@ -1008,13 +1031,20 @@ def phase_hbm_cuda_exporter() -> dict:
     if supported == 1:
         try:
             fd, off = exporter.export_dmabuf(pinned)
-        except HbmError as err:
-            # Raised with the driver's own reason, never hidden: the
-            # finding is recorded, and no check that needs the fd runs.
+        except hcuda.CudaDriverError as err:
+            # A refusal is the host's only where the export call itself
+            # refused, and refuses a raw allocation just the same.
+            require(err.call.startswith("cuMemGetHandleForAddressRange"),
+                    f"export_dmabuf failed before the export call: {err}")
+            raw = raw_alloc_export_result(nbytes)
+            require(raw == err.result,
+                    f"export_dmabuf refused ({err}) but the export of a raw "
+                    f"cuMemAlloc of {nbytes} bytes returned CUresult {raw}")
             res["export_refused"] = str(err)
             checks["export_dmabuf"] = (
                 "not run to an fd: the driver refused the export although "
-                f"DMA_BUF_SUPPORTED = 1: {err}")
+                f"DMA_BUF_SUPPORTED = 1: {err}; the same export of a raw "
+                f"cuMemAlloc, without CUDAExporter, returned CUresult {raw}")
     if fd is not None:
         info = Path(f"/proc/self/fdinfo/{fd}").read_text()
         m = re.search(r"exp_name:\s*(\S+)", info)
@@ -1085,26 +1115,23 @@ XSLICE_SIZES = {torch.float32: (25_000_003, 7_777_777, 1, 65_537),
                 torch.bfloat16: (50_000_017, 12_345_679, 3, 4097)}
 
 
-def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
+def phase_xslice() -> dict:
     """World-2 ring in-process (one thread per rank), each rank's tree
     of CUDA tensors averaged through the shim's staged path; bitwise
     against (a + b) / 2 on the device: at world 2 the ring adds once
     (the native bf16 fold rounds to nearest-even once, as torch's bf16
-    add does) and /2 is exact. (``device``/``sizes`` let the phase be
-    rehearsed on the CPU at a small size.)"""
+    add does) and /2 is exact."""
     def trees(seed):
         out = []
         for r in range(2):
-            g = torch.Generator(device=device).manual_seed(seed + r)
+            g = torch.Generator(device="cuda").manual_seed(seed + r)
             out.append({str(dt).split(".")[-1]: [
-                torch.randn(n, generator=g, device=device).to(dt)
-                for n in ns] for dt, ns in sizes.items()})
+                torch.randn(n, generator=g, device="cuda").to(dt)
+                for n in ns] for dt, ns in XSLICE_SIZES.items()})
         return out
 
-    on_card = device == "cuda"
-
     tree_bytes = sum(n * torch.empty((), dtype=dt).element_size()
-                     for dt, ns in sizes.items() for n in ns)
+                     for dt, ns in XSLICE_SIZES.items() for n in ns)
     worlds = local_worlds(2, free_port() + 100, spec="emu")
     shims = [CrossSliceAllReduce(w, mean=True) for w in worlds]
     errs = [None, None]
@@ -1112,8 +1139,7 @@ def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
     def run(tr):
         def rank(r):
             try:
-                if on_card:
-                    torch.cuda.set_device(0)
+                torch.cuda.set_device(0)
                 shims[r](tr[r])
             except BaseException as e:  # surfaced below
                 errs[r] = e
@@ -1123,8 +1149,7 @@ def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
             t.start()
         for t in ts:
             t.join()
-        if on_card:
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         for e in errs:
             if e is not None:
                 raise e
@@ -1132,7 +1157,7 @@ def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
 
     res = {"tree_bytes": tree_bytes, "channels": worlds[0].channels,
            "leaves": {str(dt).split(".")[-1]: list(ns)
-                      for dt, ns in sizes.items()}}
+                      for dt, ns in XSLICE_SIZES.items()}}
     for name, seed in (("cold", 10), ("warm", 20)):
         tr = trees(seed)
         want = {k: [(a + b) / 2 for a, b in zip(tr[0][k], tr[1][k])]
@@ -1161,8 +1186,7 @@ def phase_xslice(device: str = "cuda", sizes=XSLICE_SIZES) -> dict:
         s.close()
     for w in worlds:
         w.close()
-    if on_card:
-        torch.cuda.empty_cache()
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1174,16 +1198,15 @@ def grad_bytes(cfg) -> int:
     return (cfg.param_count() - norms) * elt + norms * 4
 
 
-def phase_two_slice_dp(c_per_step: dict, cfg=llama.LLAMA3_1B,
-                       b: int = 2, s: int = 2048, steps: int = 4,
-                       extra=()) -> dict:
-    """Path (d). Step 1 warms; steps 2.. are timed. (``cfg``, the shape
-    and ``extra`` flags let the phase be rehearsed on the CPU.)"""
+def phase_two_slice_dp(c_per_step: dict) -> dict:
+    """Path (d): two rank processes of llama3-1b bf16 with remat, batch
+    2 × seq 2048 per rank. Step 1 warms; steps 2.. are timed."""
+    cfg, b, s, steps = llama.LLAMA3_1B, 2, 2048, 4
     port = free_port() + 100
     cmd = [sys.executable, str(REPO / "examples" / "two_slice_dp_torch.py"),
            "--world", "2", "--port", str(port), "--engine", "emu",
            "--config", cfg.name, "--remat", "--one-batch", "--batch",
-           str(b), "--seq", str(s), "--steps", str(steps), *extra]
+           str(b), "--seq", str(s), "--steps", str(steps)]
     with tempfile.TemporaryDirectory() as tmp:
         outs = [open(os.path.join(tmp, f"r{r}.{k}"), "w+")
                 for r in range(2) for k in ("out", "err")]
@@ -1217,8 +1240,7 @@ def phase_two_slice_dp(c_per_step: dict, cfg=llama.LLAMA3_1B,
     for k in range(steps + 1):
         require(per[0][k]["digest"] == per[1][k]["digest"],
                 f"path (d): parameter digests differ after step {k}")
-    # CUDA gradients stage both ways; CPU ones are reduced in place.
-    want_bytes = 0 if "--cpu" in extra else 2 * grad_bytes(cfg)
+    want_bytes = 2 * grad_bytes(cfg)   # CUDA gradients stage both ways
     losses = [[per[r][k]["loss"] for k in range(1, steps + 1)]
               for r in range(2)]
     for r in range(2):

@@ -26,7 +26,7 @@ As real multi-host slices (one process per host):
 
 Without ``--rank`` the script starts one subprocess per rank (CUDA
 cannot be forked once initialised) and exits non-zero if any fails.
-Every rank starts from ``init_params(--seed)`` and draws its data
+Every rank starts from ``init_params(seed=0)`` and draws its data
 shard from ``default_rng(1234 + rank)``: a new batch each step, or with
 ``--one-batch`` one batch trained on every step, as the single-card
 training path does. A batch is (batch, seq + 1) token ids, so the model
@@ -91,7 +91,7 @@ def run_slice(rank: int, args) -> int:
     # bytes); CUDA gradients are staged through pinned host memory.
     sync = CrossSliceAllReduce(world, exporter=CUDAExporter(), mean=True)
     overrides = {"remat": True} if args.remat else {}
-    trainer = Trainer(args.config, cross_slice_sync=sync, seed=args.seed,
+    trainer = Trainer(args.config, cross_slice_sync=sync, seed=0,
                       device=device, **overrides)
     cfg = trainer.cfg
     rng = np.random.default_rng(1234 + rank)   # per-slice data shard
@@ -152,8 +152,8 @@ def main():
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--one-batch", action="store_true",
                     help="draw one batch per rank and train on it every "
-                         "step (the loss then falls within a few steps)")
-    ap.add_argument("--seed", type=int, default=0)
+                         "step, so the loss falls within a few steps "
+                         "(chip_smoke.py's path (d) checks that it does)")
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (plain PyTorch versions)")
     args = ap.parse_args()

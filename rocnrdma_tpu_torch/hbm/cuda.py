@@ -82,12 +82,21 @@ def _cu() -> ctypes.CDLL:
         return _libcuda
 
 
+class CudaDriverError(HbmError):
+    """A libcuda call refused: ``call`` names it, ``result`` is its
+    CUresult."""
+
+    def __init__(self, call: str, result: int, text: str) -> None:
+        super().__init__(f"{call} failed: CUresult {result} ({text})")
+        self.call, self.result = call, result
+
+
 def _cu_check(rc: int, what: str) -> None:
     if rc != 0:
         msg = ctypes.c_char_p()
         _cu().cuGetErrorString(rc, ctypes.byref(msg))
         text = msg.value.decode() if msg.value else "unknown error"
-        raise HbmError(f"{what} failed: CUresult {rc} ({text})")
+        raise CudaDriverError(what, rc, text)
 
 
 def dmabuf_supported(device: int = 0) -> int:

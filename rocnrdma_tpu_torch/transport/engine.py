@@ -161,16 +161,16 @@ def _build_library() -> None:
     """Bring ``libtdr.so`` up to date with the native sources. ``make``
     rebuilds only what changed; the exclusive ``flock`` makes
     concurrent processes (test workers, the ranks of one job) wait for
-    the first build instead of racing it. TUNE=native is safe here: the
-    build always runs on the machine that executes the library (the
-    repo ships no .so)."""
+    the first build instead of racing it. Two jobs at most: a wider first
+    build starves the timing-sensitive ring tests that run beside it. TUNE=native is safe here: the build
+    always runs on the machine that executes the library (the repo
+    ships no .so)."""
     os.makedirs(os.path.dirname(_BUILD_LOCK), exist_ok=True)
     with open(_BUILD_LOCK, "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             proc = subprocess.run(
-                ["make", "-s", f"-j{min(8, os.cpu_count() or 1)}", "-C",
-                 _NATIVE_DIR, "TUNE=native"],
+                ["make", "-s", "-j2", "-C", _NATIVE_DIR, "TUNE=native"],
                 capture_output=True, text=True)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)

@@ -53,7 +53,7 @@ from rocnrdma_tpu_torch.parallel.trainer import Trainer
 from rocnrdma_tpu_torch.transport.engine import Engine
 
 from test_torch_world import run_ranks
-from test_transport import free_port
+from test_hier import port_band
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = 2e-4
@@ -61,7 +61,7 @@ LOSS_TOL = 2e-4
 
 def mixed_worlds():
     """Rank 0 on the JAX package's library, rank 1 on the port's."""
-    port = free_port() + 100
+    port = port_band(8)
     out = [None, None]
 
     def boot(r):
@@ -144,7 +144,7 @@ def _tokens(seed, shape):
 
 
 def test_two_torch_slices_match_the_combined_batch():
-    worlds = local_worlds(2, free_port() + 100)
+    worlds = local_worlds(2, port_band(8))
     shims = [CrossSliceAllReduce(worlds[r], mean=True) for r in range(2)]
     trainers = [Trainer("llama-tiny", device="cpu", seed=5,
                         cross_slice_sync=shims[r]) for r in range(2)]
@@ -172,8 +172,9 @@ def test_two_torch_slices_match_the_combined_batch():
 
 def test_two_torch_slices_track_two_jax_slices():
     lr = 3e-4
-    jw = jax_worlds(2, free_port() + 100)
-    tw = local_worlds(2, free_port() + 300)
+    base = port_band(16)
+    jw = jax_worlds(2, base)
+    tw = local_worlds(2, base + 8)
     jshims = [JaxShim(jw[r], mean=True) for r in range(2)]
     tshims = [CrossSliceAllReduce(tw[r], mean=True) for r in range(2)]
     jts = [JaxTrainer("llama-tiny", {"dp": 1, "tp": 1}, seed=0,
@@ -266,7 +267,7 @@ def test_two_slice_example_runs_on_the_cpu():
     proc = subprocess.run(
         [sys.executable, "examples/two_slice_dp_torch.py", "--cpu",
          "--steps", "2", "--batch", "2", "--seq", "16",
-         "--port", str(free_port() + 200), "--engine", "emu"],
+         "--port", str(port_band(8)), "--engine", "emu"],
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "OMP_NUM_THREADS": "2"})
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -20,6 +20,7 @@ import torch
 from rocnrdma_tpu_torch.collectives.world import RingWorld, local_worlds
 from rocnrdma_tpu_torch.transport.engine import TransportError
 
+from test_hier import port_band
 from test_transport import free_port
 
 
@@ -54,7 +55,7 @@ def _inputs(world_size, count, dtype, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("count", [1, 7, 4099, 100003])
 def test_allreduce_tensors(world_size, dtype, count):
-    worlds = local_worlds(world_size, free_port() + 100)
+    worlds = local_worlds(world_size, port_band(8))
     ins = _inputs(world_size, count, dtype, seed=count)
     bufs = [x.clone() for x in ins]
     run_ranks(worlds, lambda w, r: w.allreduce(bufs[r]))
@@ -79,7 +80,7 @@ def test_reduce_scatter_then_all_gather_equals_allreduce(world_size):
     slice of the flat buffer); all_gather completes the allreduce,
     bitwise the allreduce of the same inputs."""
     count = 10007
-    worlds = local_worlds(world_size, free_port() + 100)
+    worlds = local_worlds(world_size, port_band(8))
     ins = _inputs(world_size, count, torch.float32, seed=5)
     staged = [x.clone() for x in ins]
     fused = [x.clone() for x in ins]
@@ -101,7 +102,7 @@ def test_reduce_scatter_then_all_gather_equals_allreduce(world_size):
 
 @pytest.mark.parametrize("root", [0, 2])
 def test_broadcast_tensors(root):
-    worlds = local_worlds(3, free_port() + 100)
+    worlds = local_worlds(3, port_band(8))
     bufs = [torch.full((3001,), float(r), dtype=torch.bfloat16)
             for r in range(3)]
     bufs[root] = torch.linspace(-1, 1, 3001).to(torch.bfloat16)
@@ -116,7 +117,7 @@ def test_broadcast_tensors(root):
 def test_numpy_and_tensor_ranks_agree():
     """One rank reduces a numpy array, the other a CPU tensor: the ring
     only sees addresses, dtypes and sizes."""
-    worlds = local_worlds(2, free_port() + 100)
+    worlds = local_worlds(2, port_band(8))
     a = np.arange(1000, dtype=np.int64)
     b = torch.arange(1000, dtype=torch.int64) * 3
     run_ranks(worlds, lambda w, r: w.allreduce(a if r == 0 else b))
@@ -135,7 +136,7 @@ def test_unported_coordinator_and_postmortem_raise(monkeypatch):
 
 
 def test_torn_down_world_is_retryable():
-    worlds = local_worlds(2, free_port() + 100)
+    worlds = local_worlds(2, port_band(8))
     worlds[0].close()
     with pytest.raises(TransportError) as err:
         worlds[0].allreduce(torch.zeros(4))

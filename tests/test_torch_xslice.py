@@ -34,11 +34,11 @@ from rocnrdma_tpu_torch.transport.engine import TransportError
 from rocnrdma_tpu_torch.utils.trace import trace
 
 from test_torch_world import run_ranks
-from test_transport import free_port
+from test_hier import port_band
 
 
 def make_world2(exporters=None, mean=False):
-    worlds = local_worlds(2, free_port() + 100)
+    worlds = local_worlds(2, port_band(8))
     shims = [CrossSliceAllReduce(worlds[r], exporter=(
         exporters[r] if exporters else None), mean=mean) for r in range(2)]
     return worlds, shims
@@ -315,7 +315,7 @@ def test_step_token_is_in_the_digest():
 
 
 def test_unported_options_raise(monkeypatch):
-    worlds = local_worlds(2, free_port() + 100)
+    worlds = local_worlds(2, port_band(8))
     for kw in (dict(overlap=True), dict(bucket_bytes=1 << 20),
                dict(wire_dtype="bf16"), dict(per_layer=True)):
         with pytest.raises(NotImplementedError, match="item 2b"):
@@ -365,8 +365,9 @@ def test_sched_describe_matches_the_jax_shim(path):
         return {k: {n: make(s, np_dt[d]) for n, (s, d) in v.items()}
                 for k, v in shapes.items()}
 
-    jw = jax_worlds(2, free_port() + 100)
-    tw = local_worlds(2, free_port() + 300)
+    base = port_band(16)
+    jw = jax_worlds(2, base)
+    tw = local_worlds(2, base + 8)
     if path == "staged":
         jtree = np_tree(np.zeros)
         ttree = jax.tree_util.tree_map(
