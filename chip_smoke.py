@@ -40,12 +40,24 @@ the tensor-core route.
   RDMA WRITE into the device range and its revocation;
 - the cross-slice sync: a world-2 ring of two threads on the card, each
   rank's ~256 MB tree of f32 and bf16 CUDA tensors averaged through the
-  staged path, bitwise against (a + b) / 2 on the device;
+  staged path — fused, bucketed at the default size and at 4 MiB (all
+  bitwise against (a + b) / 2 on the device), and with the bf16 and
+  int8 wires on the f32 leaves (within tolerance, both ranks bitwise
+  equal) — with each mode's cold and warm gather / ring / scatter ms;
+- the ring by message size: the port's ``tools/allreduce.py`` at world
+  2 in bf16, 4 MiB, 64 MiB and 1 GiB, as two rank processes and as two
+  threads of one process, and the 64 MiB case across processes once
+  more with the flight recorder on;
 - path (d): ``examples/two_slice_dp_torch.py`` as two rank processes on
   the card, llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, the
   gradients averaged over the emu ring each step: losses, equal
   parameter digests on both ranks after every step, launches per step
-  equal to path (c)'s, staged bytes, the grads / sync / apply split.
+  equal to path (c)'s, staged bytes, the grads / sync / apply split;
+- path (e): path (d)'s command with ``--per-layer`` and
+  ``TDR_TELEMETRY=1``: each layer's gradients pushed from the backward
+  by post-accumulate-grad hooks; path (d)'s gates, parameter digests
+  equal to path (d)'s after every step, the overlap fractions, the
+  recorder's dropped count and the ring's time split by native event.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -1115,12 +1127,35 @@ XSLICE_SIZES = {torch.float32: (25_000_003, 7_777_777, 1, 65_537),
                 torch.bfloat16: (50_000_017, 12_345_679, 3, 4097)}
 
 
+# The overlap modes of the sync held against the fused path, each on
+# fresh shims: a cold call, then a warm one on new trees.
+XSLICE_MODES = {"fused": {}, "overlap": {"overlap": True},
+                "bucket_4mib": {"overlap": True, "bucket_bytes": 4 << 20},
+                "wire_bf16": {"overlap": True, "wire_dtype": "bf16"},
+                "wire_int8": {"overlap": True, "wire_dtype": "int8"}}
+
+
+def wire_tolerance(wire: str, a, b, want):
+    """Per-element bound on |wire mean - (a + b) / 2| at world 2, on a
+    first call (zero residuals): int8 is ``tests/test_overlap.py``'s
+    absmax * world / 127 per leaf; bf16 rounds each rank's value and
+    the folded sum once each (2^-9 relative), bounded here by
+    2^-8 (|a| + |b|) / 2 + 2^-8 |want|."""
+    if wire == "wire_int8":
+        return float(want.abs().max()) * 2 / 127.0 + 1e-6
+    return (a.abs() + b.abs()) * 2.0 ** -9 + want.abs() * 2.0 ** -8
+
+
 def phase_xslice() -> dict:
     """World-2 ring in-process (one thread per rank), each rank's tree
-    of CUDA tensors averaged through the shim's staged path; bitwise
-    against (a + b) / 2 on the device: at world 2 the ring adds once
-    (the native bf16 fold rounds to nearest-even once, as torch's bf16
-    add does) and /2 is exact."""
+    of CUDA tensors averaged through the shim's staged path in every
+    mode of ``XSLICE_MODES``. The fused path, the overlap path and
+    4 MiB buckets are bitwise (a + b) / 2 on the device (at world 2 the
+    ring adds once — the native bf16 fold rounds to nearest-even once,
+    as torch's bf16 add does — and /2 is exact), so the overlap modes
+    are bitwise the fused result; the bf16 and int8 wires compress the
+    f32 leaves only, which stay within ``wire_tolerance``, the bf16
+    leaves stay bitwise, and both ranks end bitwise equal."""
     def trees(seed):
         out = []
         for r in range(2):
@@ -1133,10 +1168,9 @@ def phase_xslice() -> dict:
     tree_bytes = sum(n * torch.empty((), dtype=dt).element_size()
                      for dt, ns in XSLICE_SIZES.items() for n in ns)
     worlds = local_worlds(2, free_port() + 100, spec="emu")
-    shims = [CrossSliceAllReduce(w, mean=True) for w in worlds]
     errs = [None, None]
 
-    def run(tr):
+    def run(shims, tr):
         def rank(r):
             try:
                 torch.cuda.set_device(0)
@@ -1156,34 +1190,59 @@ def phase_xslice() -> dict:
         return time.perf_counter() - t0
 
     res = {"tree_bytes": tree_bytes, "channels": worlds[0].channels,
+           "link_tier": ("stream" if worlds[0].left_qp.has_seal_payload
+                         else "cma"),
            "leaves": {str(dt).split(".")[-1]: list(ns)
                       for dt, ns in XSLICE_SIZES.items()}}
-    for name, seed in (("cold", 10), ("warm", 20)):
-        tr = trees(seed)
-        want = {k: [(a + b) / 2 for a, b in zip(tr[0][k], tr[1][k])]
-                for k in tr[0]}
-        staged0 = staging.bytes
-        wall = run(tr)
-        staged = staging.bytes - staged0
-        require(staged == 2 * tree_bytes * 2,
-                f"staged {staged} bytes, want {4 * tree_bytes}")
-        for r in range(2):
+    for mode, kw in XSLICE_MODES.items():
+        shims = [CrossSliceAllReduce(w, mean=True, **kw) for w in worlds]
+        calls = {}
+        for name, seed in (("cold", 10), ("warm", 20)):
+            tr = trees(seed)
+            ins = [{k: [t.clone() for t in v] for k, v in tr[r].items()}
+                   for r in range(2)] if mode.startswith("wire") else None
+            want = {k: [(a + b) / 2 for a, b in zip(tr[0][k], tr[1][k])]
+                    for k in tr[0]}
+            staged0 = staging.bytes
+            wall = run(shims, tr)
+            staged = staging.bytes - staged0
+            require(staged == 2 * tree_bytes * 2,
+                    f"{mode}: staged {staged} bytes, want {4 * tree_bytes}")
             for k in want:
-                for got, w in zip(tr[r][k], want[k]):
-                    require(torch.equal(got, w),
-                            f"rank {r} {k} leaf of {w.numel()} differs from "
-                            "(a + b) / 2")
-        split = [{k.replace("_s", "_ms"): v * 1e3
-                  for k, v in s.last_split.items()} for s in shims]
-        res[name] = {"wall_ms": wall * 1e3, "staged_bytes": staged,
-                     "split_ms_by_rank": split,
-                     "ring_bus_gb_s": tree_bytes / min(
-                         s.last_split["ring_s"] for s in shims) / 1e9}
-        del tr, want
-    res["bitwise"] = True
+                for i, w in enumerate(want[k]):
+                    got0, got1 = tr[0][k][i], tr[1][k][i]
+                    require(torch.equal(got0, got1),
+                            f"{mode}: ranks differ on {k} leaf {i}")
+                    if not mode.startswith("wire") or k == "bfloat16":
+                        require(torch.equal(got0, w),
+                                f"{mode}: {k} leaf of {w.numel()} differs "
+                                "from (a + b) / 2")
+                    elif name == "cold":
+                        tol = wire_tolerance(mode, ins[0][k][i],
+                                             ins[1][k][i], w)
+                        err = (got0 - w).abs()
+                        require(bool((err <= tol).all()),
+                                f"{mode}: {k} leaf {i} off by "
+                                f"{float(err.max())}")
+                        calls.setdefault("max_abs_err", 0.0)
+                        calls["max_abs_err"] = max(calls["max_abs_err"],
+                                                   float(err.max()))
+            split = [{k.replace("_s", "_ms"): v * 1e3
+                      for k, v in s.last_split.items()} for s in shims]
+            calls[name] = {"wall_ms": wall * 1e3, "staged_bytes": staged,
+                           "split_ms_by_rank": split}
+            if mode == "fused":
+                calls[name]["ring_bus_gb_s"] = tree_bytes / min(
+                    s.last_split["ring_s"] for s in shims) / 1e9
+            del tr, want, ins
+        for s in shims:
+            s.close()
+        calls["bitwise_vs_fused"] = not mode.startswith("wire")
+        res[mode] = calls
     res["bus_formula"] = "tree bytes * 2(n-1)/n / ring_s, n = 2"
-    for s in shims:
-        s.close()
+    res["split_note"] = ("overlap modes: gather = start() (enqueue every "
+                         "D2H, wait, compress, launch), ring = finish()'s "
+                         "wait on the handles, scatter = write-back")
     for w in worlds:
         w.close()
     torch.cuda.empty_cache()
@@ -1198,20 +1257,22 @@ def grad_bytes(cfg) -> int:
     return (cfg.param_count() - norms) * elt + norms * 4
 
 
-def phase_two_slice_dp(c_per_step: dict) -> dict:
-    """Path (d): two rank processes of llama3-1b bf16 with remat, batch
-    2 × seq 2048 per rank. Step 1 warms; steps 2.. are timed."""
-    cfg, b, s, steps = llama.LLAMA3_1B, 2, 2048, 4
+def run_two_slice(extra: list, steps: int, env=None) -> list:
+    """``examples/two_slice_dp_torch.py`` as two rank processes on the
+    card: llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, one
+    batch per rank; each rank's JSON lines."""
+    cfg, b, s = llama.LLAMA3_1B, 2, 2048
     port = free_port() + 100
     cmd = [sys.executable, str(REPO / "examples" / "two_slice_dp_torch.py"),
            "--world", "2", "--port", str(port), "--engine", "emu",
            "--config", cfg.name, "--remat", "--one-batch", "--batch",
-           str(b), "--seq", str(s), "--steps", str(steps)]
+           str(b), "--seq", str(s), "--steps", str(steps)] + extra
     with tempfile.TemporaryDirectory() as tmp:
         outs = [open(os.path.join(tmp, f"r{r}.{k}"), "w+")
                 for r in range(2) for k in ("out", "err")]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)],
-                                  stdout=outs[2 * r], stderr=outs[2 * r + 1])
+                                  stdout=outs[2 * r], stderr=outs[2 * r + 1],
+                                  env={**os.environ, **(env or {})})
                  for r in range(2)]
         deadline = time.monotonic() + 480
         try:
@@ -1229,31 +1290,40 @@ def phase_two_slice_dp(c_per_step: dict) -> dict:
             f.close()
     for r in range(2):
         require(rcs[r] == 0,
-                f"path (d) rank {r} exited {rcs[r]} (compute mode "
+                f"two-slice {extra} rank {r} exited {rcs[r]} (compute mode "
                 f"{compute_mode()}): {texts[2 * r + 1][-2000:]}")
-    ranks = [[json.loads(ln) for ln in texts[2 * r].splitlines()
-              if ln.startswith("{")] for r in range(2)]
+    return [[json.loads(ln) for ln in texts[2 * r].splitlines()
+             if ln.startswith("{")] for r in range(2)]
+
+
+def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
+                      what: str) -> dict:
+    """The gates every two-slice path holds (each rank reported every
+    step, equal digests across ranks after every step, staged bytes 2 x
+    the gradient bytes, launches per step equal to path (c)'s, losses
+    finite and falling) and its mean split over the timed steps."""
+    cfg, b, s = llama.LLAMA3_1B, 2, 2048
     per = [{ln["step"]: ln for ln in lines if "step" in ln}
            for lines in ranks]
     require(all(sorted(p) == list(range(steps + 1)) for p in per),
-            "path (d): a rank did not report every step")
+            f"{what}: a rank did not report every step")
     for k in range(steps + 1):
         require(per[0][k]["digest"] == per[1][k]["digest"],
-                f"path (d): parameter digests differ after step {k}")
+                f"{what}: parameter digests differ after step {k}")
     want_bytes = 2 * grad_bytes(cfg)   # CUDA gradients stage both ways
     losses = [[per[r][k]["loss"] for k in range(1, steps + 1)]
               for r in range(2)]
     for r in range(2):
         require(all(np.isfinite(losses[r])), f"rank {r} losses {losses[r]}")
         require(losses[r][-1] < losses[r][0],
-                f"rank {r} loss did not fall: {losses[r]}")
+                f"{what} rank {r} loss did not fall: {losses[r]}")
         for k in range(1, steps + 1):
             ln = per[r][k]
             require(ln["launches"] == c_per_step,
-                    f"path (d) rank {r} step {k} launches {ln['launches']} "
+                    f"{what} rank {r} step {k} launches {ln['launches']} "
                     f"!= path (c)'s {c_per_step}")
             require(ln["staged_bytes"] == want_bytes,
-                    f"path (d) staged {ln['staged_bytes']} != {want_bytes}")
+                    f"{what} staged {ln['staged_bytes']} != {want_bytes}")
     timed = [[per[r][k] for k in range(2, steps + 1)] for r in range(2)]
 
     def mean(key):
@@ -1265,28 +1335,156 @@ def phase_two_slice_dp(c_per_step: dict) -> dict:
                 for name in c_per_step}
     finals = [next(ln for ln in lines if "final_digest" in ln)
               for lines in ranks]
+    split_keys = [k for k in ("grads_ms", "sync_ms", "apply_ms",
+                              "stage_ms", "gather_ms", "ring_ms",
+                              "scatter_ms") if k in timed[0][0]]
     return {"config": f"{cfg.name}/{str(cfg.dtype).split('.')[-1]}/remat",
             "ranks": 2,
             "batch_per_rank": b, "seq": s, "engine": per[0][0]["engine"],
             "link_tier": per[0][0]["link_tier"],
+            "overlap": per[0][0]["overlap"],
+            "per_layer": per[0][0]["per_layer"],
             "steps": steps, "timed_steps": steps - 1,
             "step_ms_by_rank": [[ln["step_ms"] for ln in lines]
                                 for lines in timed],
             "step_ms_mean": step_ms,
-            **{f"{k}_mean": mean(k) for k in (
-                "grads_ms", "sync_ms", "apply_ms", "gather_ms", "ring_ms",
-                "scatter_ms")},
+            **{f"{k}_mean": mean(k) for k in split_keys},
             "staged_bytes_per_step": per[0][steps]["staged_bytes"],
             "grad_bytes": grad_bytes(cfg),
             "ring_bus_gb_s": (grad_bytes(cfg) / (mean("ring_ms") / 1e3) / 1e9
                               if mean("ring_ms") > 0 else None),
             "tokens_per_s": 2 * b * s / (step_ms / 1e3),
             "losses": losses, "digests_equal_every_step": True,
+            "digests": [per[0][k]["digest"] for k in range(steps + 1)],
             "peak_mem_gb_by_rank": [f["peak_mem_gb"] for f in finals],
             "launches_per_step_per_rank": c_per_step,
             "launches": launches,
             "note": "both ranks time-slice one card: grads_ms is not a "
-                    "two-card number"}
+                    "two-card number"}, finals
+
+
+def phase_two_slice_dp(c_per_step: dict) -> dict:
+    """Path (d): two rank processes of llama3-1b bf16 with remat, batch
+    2 × seq 2048 per rank, the fused sync. Step 1 warms; steps 2.. are
+    timed."""
+    steps = 4
+    res, _ = two_slice_summary(run_two_slice([], steps), steps, c_per_step,
+                               "path (d)")
+    return res
+
+
+def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
+    """Path (e): path (d)'s command with ``--per-layer`` and the flight
+    recorder on (drained after every step, its ring sized for a step).
+    Besides path (d)'s gates, its parameter digests equal path (d)'s
+    after every step: at world 2 the ring adds once, so bucketing per
+    layer changes no bit. Where they differ, path (d) is run again: if
+    (d) repeats its own digests, the difference is a fault; if it does
+    not, the backward is not bitwise repeatable on this card and (e)'s
+    losses are held to (d)'s within 1e-3 relative instead."""
+    steps = 4
+    env = {"TDR_TELEMETRY": "1", "TDR_TELEMETRY_RING": str(1 << 21)}
+    ranks = run_two_slice(["--per-layer"], steps, env)
+    res, finals = two_slice_summary(ranks, steps, c_per_step, "path (e)")
+    require(res["per_layer"], "path (e) did not run the per-layer sync")
+    res["digests_equal_path_d"] = res["digests"] == d["digests"]
+    if not res["digests_equal_path_d"]:
+        again, _ = two_slice_summary(run_two_slice([], 2), 2, c_per_step,
+                                     "path (d) repeat")
+        repeats = again["digests"] == d["digests"][:3]
+        res["path_d_repeats_its_digests"] = repeats
+        require(not repeats, "path (e)'s digests differ from path (d)'s, "
+                "and (d) repeats its own: a fault of the per-layer sync")
+        rel = max(abs(e - dd) / abs(dd) for le, ld in zip(res["losses"],
+                                                          d["losses"])
+                  for e, dd in zip(le, ld))
+        require(rel <= 1e-3, f"path (e) losses off (d)'s by {rel}")
+        res["loss_max_rel_diff_vs_d"] = rel
+    tel = [f["telemetry_timed_steps"] for f in finals]
+    res["telemetry_by_rank"] = tel
+    for key in ("overlap_fraction", "compute_overlap_fraction"):
+        res[key] = [t[key] for t in tel]
+    res["telemetry_dropped"] = [t["telemetry_dropped"] for t in tel]
+    res["ring_split_ms_per_step"] = [
+        {k: v / (steps - 1) for k, v in t["ring_split_ms"].items()}
+        for t in tel]
+    res["fold_busy_ms_per_step"] = [t["fold_busy_ms"] / (steps - 1)
+                                    for t in tel]
+    res["timing_note"] = ("grads_ms ends with torch.cuda.synchronize(), so "
+                          "it includes the last bucket's D2H on the copy "
+                          "stream")
+    return res
+
+
+RING_SIZES = ("4M", "64M", "1G")
+
+
+def allreduce_tool(args: list, env=None, ranks: int = 2) -> dict:
+    """The port's ``tools/allreduce.py`` as one process per rank (the
+    two ranks' links negotiate as path (d)'s do); rank 0's record."""
+    port = free_port() + 100
+    cmd = [sys.executable, "-m", "rocnrdma_tpu_torch.tools.allreduce",
+           "--world", str(ranks), "--port", str(port), "--engine", "emu",
+           "--json"] + args
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env={**os.environ, **(env or {})})
+             for r in range(ranks)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0,
+                f"allreduce tool rank {r} exited {p.returncode}: "
+                f"{err[-2000:]}")
+    return json.loads(outs[0][0].strip().splitlines()[-1])
+
+
+def ring_threads(size: str, iters: int) -> tuple:
+    """The port's allreduce tool's ``run_rank`` on two threads of this
+    process (world 2, bf16): (bus GB/s, link tier)."""
+    from rocnrdma_tpu_torch.tools import allreduce as tool
+
+    worlds = local_worlds(2, free_port() + 100, spec="emu")
+    tier = "stream" if worlds[0].left_qp.has_seal_payload else "cma"
+    count = tool.parse_sizes(size)[0] // 2
+    barrier = threading.Barrier(2)
+    dts = [0.0, 0.0]
+
+    def go(r):
+        dts[r] = tool.run_rank(worlds[r], count, torch.bfloat16, iters,
+                               barrier)
+
+    ts = [threading.Thread(target=go, args=(r,)) for r in range(2)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    for w in worlds:
+        w.close()
+    return count * 2 * tool.bus_fraction("allreduce", 2) / max(dts) / 1e9, tier
+
+
+def phase_ring_bus_by_size() -> dict:
+    """The ring alone, by message size: the port's allreduce tool at
+    world 2 in bf16, 3 iterations per size, as two rank processes and as
+    two threads of one process; the 64 MiB case once more across
+    processes with the flight recorder on. Bus GB/s = bytes * 2(n-1)/n
+    / s per op."""
+    res = {"dtype": "bfloat16", "iters": 3, "world": 2,
+           "processes": {}, "threads": {}}
+    for size in RING_SIZES:
+        args = ["--bytes", size, "--dtype", "bfloat16", "--iters", "3"]
+        res["processes"][size] = allreduce_tool(args)["bus_GBps"]
+        res["threads"][size], res["threads_link_tier"] = ring_threads(size, 3)
+    res["processes_64M_telemetry"] = allreduce_tool(
+        ["--bytes", "64M", "--dtype", "bfloat16", "--iters", "3"],
+        env={"TDR_TELEMETRY": "1"})["bus_GBps"]
+    return res
 
 
 def run_phase(name: str, fn, *args):
@@ -1339,14 +1537,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_phase("hbm_cuda_exporter", phase_hbm_cuda_exporter)
     run_phase("xslice_sync_vs_plain", phase_xslice)
+    run_phase("ring_bus_by_size", phase_ring_bus_by_size)
     dp = run_phase("path_d_two_slice_dp_llama3_1b_bf16", phase_two_slice_dp,
                    train["launches_per_step"])
+    dpl = run_phase("path_e_two_slice_dp_per_layer_llama3_1b_bf16",
+                    phase_two_slice_dp_per_layer,
+                    train["launches_per_step"], dp)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
                 "b_batcher": bat["launches"][name],
                 "c_train": train["launches"][name],
-                "d_two_slice_dp": dp["launches"][name]}
+                "d_two_slice_dp": dp["launches"][name],
+                "e_two_slice_dp_per_layer": dpl["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

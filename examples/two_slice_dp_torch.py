@@ -24,6 +24,16 @@ As real multi-host slices (one process per host):
     python examples/two_slice_dp_torch.py \\
         --rank 0 --world 2 --peers hostA,hostB ...   ... --rank 1 ...
 
+``--overlap`` and ``--per-layer`` pass straight to the
+``CrossSliceAllReduce`` arguments of the same names (the bucketed
+start/finish sync; the per-layer sync pushed from the backward); the
+wire dtype comes from ``TDR_WIRE_DTYPE``. With ``TDR_TELEMETRY=1`` the
+flight recorder is drained after every step, and each step's line (and
+the last line, over the steps after the first) also carries the
+recorder's overlap fractions, its dropped count and the ring's time
+split by native event (``telemetry.ring_phase_split``; ``fold_busy_ms``
+from the ``fold.busy_us`` counter).
+
 Without ``--rank`` the script starts one subprocess per rank (CUDA
 cannot be forked once initialised) and exits non-zero if any fails.
 Every rank starts from ``init_params(seed=0)`` and draws its data
@@ -69,27 +79,72 @@ def link_tier(world) -> str:
     return "stream" if world.left_qp.has_seal_payload else "cma"
 
 
+def step_telemetry(telemetry, eng, mark: dict) -> dict:
+    """Drain the recorder after a step: the step's overlap fractions,
+    the ring's split by native event, and the deltas of the dropped
+    and fold-busy counters since ``mark`` (updated in place)."""
+    dropped = int(eng.telemetry_dropped())
+    fold_us = int(telemetry.counters().get("fold.busy_us", 0))
+    events = telemetry.timeline()
+    ov = telemetry.overlap_fraction(events,
+                                    dropped=dropped - mark["dropped"])
+    split = telemetry.ring_phase_split(events)
+    out = {"wire_events": ov["wire_events"],
+           "wire_in_span": ov["wire_in_span"],
+           "wire_in_compute": ov["wire_in_compute"],
+           "overlap_fraction": ov["overlap_fraction"],
+           "compute_overlap_fraction": ov["compute_overlap_fraction"],
+           "telemetry_dropped": dropped - mark["dropped"],
+           "ring_split_ms": {k: split[k] * 1e3
+                             for k in telemetry.PHASES},
+           "collectives": split["collectives"],
+           "fold_busy_ms": (fold_us - mark["fold_us"]) / 1e3}
+    mark.update(dropped=dropped, fold_us=fold_us)
+    return out
+
+
+def sum_telemetry(lines) -> dict:
+    """The recorder's numbers over several steps' lines."""
+    total = {k: sum(ln[k] for ln in lines) for k in (
+        "wire_events", "wire_in_span", "wire_in_compute",
+        "telemetry_dropped", "collectives", "fold_busy_ms")}
+    n = total["wire_events"]
+    return {**total,
+            "overlap_fraction": total["wire_in_span"] / n if n else 0.0,
+            "compute_overlap_fraction": (total["wire_in_compute"] / n
+                                         if n else 0.0),
+            "ring_split_ms": {k: sum(ln["ring_split_ms"][k] for ln in lines)
+                              for k in lines[0]["ring_split_ms"]}}
+
+
 def run_slice(rank: int, args) -> int:
     import numpy as np
     import torch
 
+    from rocnrdma_tpu_torch import telemetry
     from rocnrdma_tpu_torch.collectives.staging import staging
     from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
     from rocnrdma_tpu_torch.collectives.world import RingWorld
     from rocnrdma_tpu_torch.hbm.cuda import CUDAExporter
     from rocnrdma_tpu_torch.ops import _native
     from rocnrdma_tpu_torch.parallel.trainer import Trainer
-    from rocnrdma_tpu_torch.transport.engine import Engine
+    from rocnrdma_tpu_torch.transport import engine as eng
 
     device = "cpu" if args.cpu else "cuda"
     if device == "cuda":
         torch.cuda.set_device(0)
+    recording = os.environ.get("TDR_TELEMETRY", "0") not in ("", "0")
+    if recording:
+        # Before the engine: the collective ids ride the handshake.
+        telemetry.reset()
     peers = args.peers.split(",") if args.peers else None
-    world = RingWorld(Engine(args.engine), rank, args.world, args.port,
+    world = RingWorld(eng.Engine(args.engine), rank, args.world, args.port,
                       peers=peers)
     # CPU gradients are adopted and reduced in place (zero staged
     # bytes); CUDA gradients are staged through pinned host memory.
-    sync = CrossSliceAllReduce(world, exporter=CUDAExporter(), mean=True)
+    sync = CrossSliceAllReduce(world, exporter=CUDAExporter(), mean=True,
+                               overlap=args.overlap,
+                               per_layer=args.per_layer)
     overrides = {"remat": True} if args.remat else {}
     trainer = Trainer(args.config, cross_slice_sync=sync, seed=0,
                       device=device, **overrides)
@@ -104,11 +159,16 @@ def run_slice(rank: int, args) -> int:
     emit({"step": 0, "digest": params_digest(trainer.model),
           "config": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
           "remat": cfg.remat, "device": device, "engine": world.engine.name,
-          "link_tier": link_tier(world),
+          "link_tier": link_tier(world), "overlap": sync.overlap,
+          "per_layer": sync.per_layer, "wire": sync.wire_dtype,
           "batch": args.batch, "seq": args.seq})
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     tokens = None
+    mark = {"dropped": 0, "fold_us": 0}
+    if recording:
+        step_telemetry(telemetry, eng, mark)  # drop the bring-up window
+    recorded = []
     for step in range(1, args.steps + 1):
         if tokens is None or not args.one_batch:
             tokens = torch.from_numpy(rng.integers(
@@ -118,16 +178,24 @@ def run_slice(rank: int, args) -> int:
         t0 = time.perf_counter()
         loss = trainer.step(tokens)
         step_ms = (time.perf_counter() - t0) * 1e3
-        emit({"step": step, "loss": loss, "step_ms": step_ms,
-              **trainer.last_split,
-              **{k.replace("_s", "_ms"): v * 1e3
-                 for k, v in sync.last_split.items()},
-              "staged_bytes": staging.bytes - staged0,
-              "launches": _native.launches(),
-              "digest": params_digest(trainer.model)})
-    emit({"final_digest": params_digest(trainer.model),
-          "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
-                          if device == "cuda" else None)})
+        line = {"step": step, "loss": loss, "step_ms": step_ms,
+                **trainer.last_split,
+                **{k.replace("_s", "_ms"): v * 1e3
+                   for k, v in sync.last_split.items()},
+                "staged_bytes": staging.bytes - staged0,
+                "launches": _native.launches(),
+                "digest": params_digest(trainer.model)}
+        if recording:
+            line.update(step_telemetry(telemetry, eng, mark))
+            if step > 1:
+                recorded.append(line)
+        emit(line)
+    last = {"final_digest": params_digest(trainer.model),
+            "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if device == "cuda" else None)}
+    if recorded:
+        last["telemetry_timed_steps"] = sum_telemetry(recorded)
+    emit(last)
     sync.close()
     world.close()
     return 0
@@ -156,6 +224,12 @@ def main():
                          "(chip_smoke.py's path (d) checks that it does)")
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (plain PyTorch versions)")
+    ap.add_argument("--overlap", action="store_true",
+                    help="CrossSliceAllReduce(overlap=True): the bucketed "
+                         "start/finish sync")
+    ap.add_argument("--per-layer", action="store_true",
+                    help="CrossSliceAllReduce(per_layer=True): each layer's "
+                         "bucket pushed from the backward")
     args = ap.parse_args()
 
     if args.rank is not None:

@@ -26,11 +26,16 @@ the rebuild) is FENCED: it fails the digest comparison with an
 explicit stale-generation error instead of desynchronizing — let alone
 corrupting — the new ring.
 
+**Black-box postmortem.** With ``TDR_POSTMORTEM_DIR`` set, every
+``rebuild()`` first dumps this rank's flight-recorder ring, counters,
+the error that forced it and the schedule digest (format
+``tdr-postmortem-v1``, the JAX package's), which
+``tools/tdr_explain.py --postmortem`` merges.
+
 **Not ported yet** (ROADMAP Queue 1 item 2b): the coordinator path
-(``controller=`` — arbitrated rendezvous, member leases, world RESIZE),
-its heartbeat, and the black-box postmortem writer (set off by
-``TDR_POSTMORTEM_DIR``) need the JAX package's ``control`` and
-``telemetry`` modules; asking for either raises ``NotImplementedError``.
+(``controller=`` — arbitrated rendezvous, member leases, world RESIZE)
+and its heartbeat need a port of the JAX package's ``control``;
+asking for it raises ``NotImplementedError``.
 
 **Multi-tenancy.** One Engine may host several concurrent named
 worlds (``qp_budget`` bounds each world's QP appetite at bring-up;
@@ -83,7 +88,7 @@ from rocnrdma_tpu_torch.utils.trace import trace
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to rocnrdma_tpu_torch yet (ROADMAP.md "
-        "Queue 1, item 2b: control/ and telemetry/)")
+        "Queue 1, item 2b, entry 6: control/)")
 
 
 def _np_view(array):
@@ -387,8 +392,6 @@ class RingWorld:
         if controller is not None:
             raise _not_ported("RingWorld(controller=...) (the coordinator "
                               "path and its heartbeat)")
-        if os.environ.get("TDR_POSTMORTEM_DIR"):
-            raise _not_ported("TDR_POSTMORTEM_DIR (the postmortem writer)")
         if world < 2:
             raise ValueError("RingWorld needs world >= 2")
         if base_port is None:
@@ -495,6 +498,9 @@ class RingWorld:
         # ranks — same collectives, same order.
         self._coll_seq = 0
         self._coll_override: Optional[int] = None
+        # Black-box postmortem bundles this world has written
+        # (TDR_POSTMORTEM_DIR).
+        self._postmortems = 0
         try:
             self._bootstrap(timeout_ms)
         except BaseException:
@@ -1447,14 +1453,20 @@ class RingWorld:
         (``jitter_seed`` or TDR_REBUILD_SEED, rank, generation) —
         never the global ``random`` module — so a soak failure
         replays exactly under the same ``TDR_FAULT_PLAN``. ``reason``
-        is the error that forced the rebuild (the JAX package writes it
-        into its postmortem bundle; that writer is not ported)."""
-        if os.environ.get("TDR_POSTMORTEM_DIR"):
-            raise _not_ported("TDR_POSTMORTEM_DIR (the postmortem writer)")
-        del reason
+        is the error that forced the rebuild.
+
+        **Black-box postmortem**: with ``TDR_POSTMORTEM_DIR`` set, every
+        rebuild first dumps this rank's flight-recorder ring, counter
+        registry, last error (``reason``) and schedule digest to
+        ``<dir>/<world>/incident-g<generation>/rank<rank>.json``, keyed
+        by the FAILED incarnation's generation, so all ranks of one
+        incident land in one directory."""
         timeout = int(self.timeout_ms if timeout_ms is None else timeout_ms)
         note_fault_injections()
         note_integrity()
+        # Before teardown: the recorder's recent past still belongs to
+        # the failed incarnation.
+        self._write_postmortem(reason)
         self._teardown()
         self.generation += 1
         trace.event("world.rebuild", rank=self.rank, phase="begin",
@@ -1490,6 +1502,56 @@ class RingWorld:
             f"world rebuild failed after {max_attempts} attempts (rank "
             f"{self.rank}, generation {self.generation}): {last}",
             retryable=False)
+
+    def _write_postmortem(self, reason: str = "") -> None:
+        """Dump the black-box bundle of a dying incarnation: best effort
+        end to end (diagnostics never take the recovery ladder down),
+        and a no-op without TDR_POSTMORTEM_DIR. The ring drain is
+        destructive; counters are cumulative. Ranks that share a
+        process share one native ring, so their bundles interleave
+        each other's events. Without a coordinator the incarnation is
+        None and the clock offset 0, as on the JAX package's legacy
+        path."""
+        pm_dir = os.environ.get("TDR_POSTMORTEM_DIR")
+        if not pm_dir:
+            return
+        try:
+            from rocnrdma_tpu_torch import telemetry as tel
+            from rocnrdma_tpu_torch.transport.engine import telemetry_dropped
+
+            events = tel.timeline() if tel.enabled() else []
+            bundle = {
+                "format": "tdr-postmortem-v1",
+                "world": self.world_name,
+                "rank": self.rank,
+                "generation": self.generation,
+                "incarnation": None,
+                "error": str(reason)[:400],
+                "wall_time": time.time(),
+                "monotonic_ns": time.monotonic_ns(),
+                "digest": self._sched_verified.hex(),
+                "seal_config": self.seal_config,
+                "coll_seq": self._coll_seq,
+                "counters": {k: int(v)
+                             for k, v in tel.counters().items()},
+                "dropped": int(telemetry_dropped()),
+                "clock_offset_ns": 0,
+                "events": tel.events_to_wire(events),
+            }
+            d = os.path.join(pm_dir, self.world_name,
+                             f"incident-g{self.generation}")
+            os.makedirs(d, exist_ok=True)
+            path = os.path.join(d, f"rank{self.rank}.json")
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(bundle, f)
+            os.replace(tmp, path)
+            self._postmortems += 1
+            trace.event("world.postmortem", rank=self.rank,
+                        generation=self.generation,
+                        events=len(bundle["events"]), path=path)
+        except Exception:
+            pass
 
     def close(self) -> None:
         self._teardown()

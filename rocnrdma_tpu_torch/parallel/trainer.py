@@ -22,23 +22,39 @@ reduced gradients (``trainer.apply``). The first sync is stamped with
 the step number (``set_step_token``), so ranks at different steps fail
 the schedule digest instead of averaging different batches.
 
+The sync runs in one of the JAX trainer's three modes: the fused call;
+with ``overlap`` (a sync exposing ``start``), ``start(grads)`` inside
+``trainer.grads`` right after the backward and ``finish()`` in
+``trainer.sync``; with ``per_layer`` (a sync exposing
+``start_layered``), ``start_layered(layer_plan)`` before the backward,
+each bucket pushed from the backward by post-accumulate-grad hooks the
+moment its last parameter's gradient has accumulated, and
+``finish(grads)`` in ``trainer.sync``. ``layer_plan`` has one bucket
+per top-level key of the flax-shaped tree, sorted (``embed``,
+``final_norm``, ``layer_0``, ``layer_1``, ``layer_10``, ...,
+``lm_head``), each listing its leaves' (numel, dtype) in tree order:
+the JAX trainer's plan for the same model.
+
 What else the JAX trainer does across devices and hosts is not ported
 yet, and asking for it raises ``NotImplementedError`` naming the
-ROADMAP item that ports it: ``elastic`` (Queue 1 item 2b),
+ROADMAP item that ports it: ``elastic`` (Queue 1 item 2b, entry 5),
 ``seq_parallel`` (item 3) and any mesh of more than one device (item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Dict, Optional, Union
 
 import torch
 
 from .. import DeviceLike, resolve_device
+from ..collectives.torch_shim import tree_flatten
 from ..models.llama import (CONFIGS, Llama, LlamaConfig, _flax_path,
                             cross_entropy_loss, init_params)
+from ..transport.engine import dtype_name
 from ..utils.trace import trace
 
 __all__ = ["loss_fn", "Trainer"]
@@ -74,7 +90,8 @@ class Trainer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  **model_overrides) -> None:
         if elastic is not None:
-            raise _not_ported("elastic (ElasticPolicy resume)", "item 2b")
+            raise _not_ported("elastic (ElasticPolicy resume)",
+                              "item 2b, entry 5")
         if seq_parallel is not None:
             raise _not_ported("seq_parallel (ring attention / Ulysses)",
                               "item 3")
@@ -106,18 +123,50 @@ class Trainer:
         # Host ms of the last synced step's phases (grads, sync, apply),
         # each ending with the card idle.
         self.last_split: Dict[str, float] = {}
+        self._per_layer = bool(getattr(cross_slice_sync, "per_layer", False)
+                               and hasattr(cross_slice_sync,
+                                           "start_layered"))
+        self._pending_layers = None
+        if self._per_layer:
+            inner = self._param_tree(lambda p: p)["params"]
+            self._buckets = [tree_flatten(inner[k])[0]
+                             for k in sorted(inner)]
+            self.layer_plan = [
+                (k, [(p.numel(), dtype_name(p)) for p in ps])
+                for k, ps in zip(sorted(inner), self._buckets)]
+            for idx, ps in enumerate(self._buckets):
+                for p in ps:
+                    p.register_post_accumulate_grad_hook(
+                        functools.partial(self._grad_ready, idx))
 
-    def grads_tree(self) -> Dict[str, object]:
-        """The parameters' gradients as the flax-shaped tree the sync
-        takes, the tensors left where they are."""
+    def _param_tree(self, leaf) -> Dict[str, object]:
+        """``leaf(p)`` of every parameter in the flax-shaped tree."""
         tree: Dict[str, object] = {}
         for name, p in self.model.named_parameters():
             path = _flax_path(name)
             node = tree
             for key in path[:-1]:
                 node = node.setdefault(key, {})
-            node[path[-1]] = p.grad
+            node[path[-1]] = leaf(p)
         return {"params": tree}
+
+    def grads_tree(self) -> Dict[str, object]:
+        """The parameters' gradients as the flax-shaped tree the sync
+        takes, the tensors left where they are."""
+        return self._param_tree(lambda p: p.grad)
+
+    def _grad_ready(self, idx: int, _param) -> None:
+        """Post-accumulate-grad hook: push bucket ``idx`` to the step's
+        pending sync once the last of its parameters' gradients has
+        accumulated. Runs inside the backward (on the card, on
+        autograd's device thread), so it never raises: ``push`` keeps
+        failures for ``finish()``."""
+        pending = self._pending_layers
+        if pending is None:
+            return  # a backward outside a per-layer step
+        self._left[idx] -= 1
+        if self._left[idx] == 0:
+            pending.push(idx, [p.grad for p in self._buckets[idx]])
 
     def _set_grads(self, tree) -> None:
         """Write a synced tree back into ``p.grad`` (in place where the
@@ -142,16 +191,36 @@ class Trainer:
             if stamp is not None:
                 stamp(self.global_step)
             self._stamp_sync = False
+        sync = self.cross_slice_sync
+        overlap = getattr(sync, "overlap", False) and hasattr(sync, "start")
+        pending = None
         t0 = time.perf_counter()
         with trace.span("trainer.grads", step=step_no):
             self.opt.zero_grad(set_to_none=True)
-            with trace.span("trainer.backward", step=step_no):
-                loss = loss_fn(self.model, tokens)
-                loss.backward()
+            if self._per_layer:
+                # The hooks push each bucket from inside the backward,
+                # so its wire rides under the rest of the backward.
+                pending = sync.start_layered(self.layer_plan)
+                self._left = [len(ps) for ps in self._buckets]
+                self._pending_layers = pending
+            try:
+                with trace.span("trainer.backward", step=step_no):
+                    loss = loss_fn(self.model, tokens)
+                    loss.backward()
+            finally:
+                self._pending_layers = None
+            if overlap and pending is None:
+                pending = sync.start(self.grads_tree())
             t0 = self._mark("grads_ms", t0)
         # The cross-slice hop: the gradients averaged across slices.
         with trace.span("trainer.sync", step=step_no):
-            self._set_grads(self.cross_slice_sync(self.grads_tree()))
+            if self._per_layer:
+                tree = pending.finish(self.grads_tree())
+            elif pending is not None:
+                tree = pending.finish()
+            else:
+                tree = sync(self.grads_tree())
+            self._set_grads(tree)
             t0 = self._mark("sync_ms", t0)
         with trace.span("trainer.apply", step=step_no):
             self.opt.step()

@@ -127,12 +127,19 @@ def test_numpy_and_tensor_ranks_agree():
         w.close()
 
 
-def test_unported_coordinator_and_postmortem_raise(monkeypatch):
+def test_unported_coordinator_and_postmortem_raise(monkeypatch, tmp_path):
+    """The coordinator path still raises, naming its ROADMAP item; the
+    postmortem writer is ported: with TDR_POSTMORTEM_DIR set a world
+    builds, and a rebuild writes each rank's bundle."""
     with pytest.raises(NotImplementedError, match="item 2b"):
         RingWorld(None, 0, 2, controller="127.0.0.1:1")
-    monkeypatch.setenv("TDR_POSTMORTEM_DIR", "/nonexistent")
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        RingWorld(None, 0, 2, base_port=free_port())
+    monkeypatch.setenv("TDR_POSTMORTEM_DIR", str(tmp_path))
+    worlds = local_worlds(2, port_band(8), world_name="pm")
+    run_ranks(worlds, lambda w, r: w.rebuild(reason=f"forced {r}"))
+    for r, w in enumerate(worlds):
+        assert w._postmortems == 1
+        assert (tmp_path / "pm" / "incident-g0" / f"rank{r}.json").exists()
+        w.close()
 
 
 def test_torn_down_world_is_retryable():

@@ -315,15 +315,69 @@ def test_step_token_is_in_the_digest():
 
 
 def test_unported_options_raise(monkeypatch):
+    """The overlap options are ported: each builds a shim, and a wire
+    dtype without overlap (argument or TDR_WIRE_DTYPE) is the JAX
+    shim's ValueError, not a NotImplementedError."""
     worlds = local_worlds(2, port_band(8))
     for kw in (dict(overlap=True), dict(bucket_bytes=1 << 20),
-               dict(wire_dtype="bf16"), dict(per_layer=True)):
-        with pytest.raises(NotImplementedError, match="item 2b"):
-            CrossSliceAllReduce(worlds[0], **kw)
+               dict(overlap=True, wire_dtype="bf16"), dict(per_layer=True)):
+        CrossSliceAllReduce(worlds[0], **kw).close()
+    with pytest.raises(ValueError, match="overlap"):
+        CrossSliceAllReduce(worlds[0], wire_dtype="bf16")
     monkeypatch.setenv("TDR_WIRE_DTYPE", "int8")
-    with pytest.raises(NotImplementedError, match="item 2b"):
+    with pytest.raises(ValueError, match="overlap"):
         CrossSliceAllReduce(worlds[0])
     for w in worlds:
+        w.close()
+
+
+# ------------------------------------------------------- tied leaves
+
+@pytest.mark.parametrize("mode", ["serial", "pipelined", "bucketed",
+                                  "bucketed_small"])
+def test_tied_leaf_across_segments_sums_once(mode, monkeypatch):
+    """A tensor that occurs twice in the tree, its occurrences in
+    different staged segments (TDR_STAGE_CHUNK at its 4 KiB floor), is
+    gathered twice before either write-back: both occurrences come
+    back as the sum of the ranks' local values, as the JAX shim returns
+    for the same tree of numpy arrays (a = c = 3.0, b = 30.0)."""
+    monkeypatch.setenv("TDR_STAGE_CHUNK", "4096")
+    if mode == "pipelined":
+        monkeypatch.setenv("TDR_STAGE_PIPELINE", "1")
+    kw = {"bucketed": dict(overlap=True),
+          "bucketed_small": dict(overlap=True, bucket_bytes=4096)}.get(
+              mode, {})
+
+    def trees(make):
+        out = []
+        for r in range(2):
+            t = make(3000, r + 1.0)
+            out.append({"a": t, "b": make(5000, 10.0 * (r + 1)), "c": t})
+        return out
+
+    from rocnrdma_tpu.collectives.jax_shim import \
+        CrossSliceAllReduce as JaxShim
+    from rocnrdma_tpu.collectives.world import local_worlds as jax_worlds
+
+    base = port_band(16)
+    jw = jax_worlds(2, base)
+    tw = local_worlds(2, base + 8)
+    js = [JaxShim(w, **kw) for w in jw]
+    ts = [CrossSliceAllReduce(w, **kw) for w in tw]
+    jt = trees(lambda n, v: np.full(n, v, np.float32))
+    tt = trees(lambda n, v: torch.full((n,), v))
+    jout, tout = [None, None], [None, None]
+    run_ranks(jw, lambda w, r: jout.__setitem__(r, js[r](jt[r])))
+    run_ranks(tw, lambda w, r: tout.__setitem__(r, ts[r](tt[r])))
+    for r in range(2):
+        for k, v in (("a", 3.0), ("b", 30.0), ("c", 3.0)):
+            np.testing.assert_array_equal(np.asarray(jout[r][k]),
+                                          tout[r][k].numpy())
+            assert torch.equal(tout[r][k], torch.full_like(tout[r][k], v))
+        assert tout[r]["a"] is tout[r]["c"] is tt[r]["a"]
+    for s in js + ts:
+        s.close()
+    for w in jw + tw:
         w.close()
 
 
