@@ -42,12 +42,14 @@ the tensor-core route.
   rank's ~256 MB tree of f32 and bf16 CUDA tensors averaged through the
   staged path — fused, bucketed at the default size and at 4 MiB (all
   bitwise against (a + b) / 2 on the device), and with the bf16 and
-  int8 wires on the f32 leaves (within tolerance, both ranks bitwise
-  equal) — with each mode's cold and warm gather / ring / scatter ms;
+  int8 wires on the f32 leaves (within tolerance, the warm call's
+  widened by the residuals it carries in; the bf16 wire bitwise the
+  mean of what the ranks sent; both ranks bitwise equal) — with each
+  mode's cold and warm gather / ring / scatter ms;
 - the ring by message size: the port's ``tools/allreduce.py`` at world
   2 in bf16, 4 MiB, 64 MiB and 1 GiB, as two rank processes and as two
-  threads of one process, and the 64 MiB case across processes once
-  more with the flight recorder on;
+  threads of one process, each with its link tier, and the 64 MiB case
+  across processes once more with the flight recorder on;
 - path (d): ``examples/two_slice_dp_torch.py`` as two rank processes on
   the card, llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, the
   gradients averaged over the emu ring each step: losses, equal
@@ -1135,15 +1137,40 @@ XSLICE_MODES = {"fused": {}, "overlap": {"overlap": True},
                 "wire_int8": {"overlap": True, "wire_dtype": "int8"}}
 
 
-def wire_tolerance(wire: str, a, b, want):
-    """Per-element bound on |wire mean - (a + b) / 2| at world 2, on a
-    first call (zero residuals): int8 is ``tests/test_overlap.py``'s
+def wire_tolerance(wire: str, a, b, want, carried: float = 0.0):
+    """Per-element bound on |wire mean - (a + b) / 2| at world 2. On a
+    first call (zero residuals) int8 is ``tests/test_overlap.py``'s
     absmax * world / 127 per leaf; bf16 rounds each rank's value and
     the folded sum once each (2^-9 relative), bounded here by
-    2^-8 (|a| + |b|) / 2 + 2^-8 |want|."""
+    2^-8 (|a| + |b|) / 2 + 2^-8 |want|. A later call sends each rank's
+    value plus the residual it carries in and keeps the new rounding
+    error: its mean moves by at most the largest residual carried in
+    (``carried``), and the rounding bound grows by at most 2/127 of
+    it."""
+    extra = carried * (1 + 2 / 127.0)
     if wire == "wire_int8":
-        return float(want.abs().max()) * 2 / 127.0 + 1e-6
-    return (a.abs() + b.abs()) * 2.0 ** -9 + want.abs() * 2.0 ** -8
+        return float(want.abs().max()) * 2 / 127.0 + 1e-6 + extra
+    return (a.abs() + b.abs()) * 2.0 ** -9 + want.abs() * 2.0 ** -8 + extra
+
+
+def wire_bf16_mean(ins, res_in, kept) -> list:
+    """The bf16 wire's f32 leaves bit for bit, from each rank's leaves
+    ``ins``, the residuals it carried in (``res_in``, None for zeros)
+    and those it kept (``kept``, host f32 in leaf order): a rank sends
+    bf16(x), x = leaf + residual in, which is exactly x - residual kept;
+    the ring adds the two sends in bf16 once and the mean halves it."""
+    out, o = [], 0
+    for i, leaf in enumerate(ins[0]["float32"]):
+        n = leaf.numel()
+        sent = []
+        for r in range(2):
+            x = ins[r]["float32"][i]
+            if res_in is not None:
+                x = x + res_in[r][o:o + n].to(x.device)
+            sent.append((x - kept[r][o:o + n].to(x.device)).bfloat16())
+        out.append((sent[0] + sent[1]).float() / 2)
+        o += n
+    return out
 
 
 def phase_xslice() -> dict:
@@ -1154,8 +1181,10 @@ def phase_xslice() -> dict:
     ring adds once — the native bf16 fold rounds to nearest-even once,
     as torch's bf16 add does — and /2 is exact), so the overlap modes
     are bitwise the fused result; the bf16 and int8 wires compress the
-    f32 leaves only, which stay within ``wire_tolerance``, the bf16
-    leaves stay bitwise, and both ranks end bitwise equal."""
+    f32 leaves only, which stay within ``wire_tolerance`` (on the warm
+    call, with the residuals the cold one left) and, on the bf16 wire,
+    equal ``wire_bf16_mean`` bit for bit; the bf16 leaves stay bitwise,
+    and both ranks end bitwise equal."""
     def trees(seed):
         out = []
         for r in range(2):
@@ -1190,14 +1219,16 @@ def phase_xslice() -> dict:
         return time.perf_counter() - t0
 
     res = {"tree_bytes": tree_bytes, "channels": worlds[0].channels,
-           "link_tier": ("stream" if worlds[0].left_qp.has_seal_payload
-                         else "cma"),
+           "link_tier": worlds[0].link_tier,
            "leaves": {str(dt).split(".")[-1]: list(ns)
                       for dt, ns in XSLICE_SIZES.items()}}
     for mode, kw in XSLICE_MODES.items():
         shims = [CrossSliceAllReduce(w, mean=True, **kw) for w in worlds]
         calls = {}
+        res_in = None  # the residuals a call carries in (None: zeros)
         for name, seed in (("cold", 10), ("warm", 20)):
+            carried = 0.0 if res_in is None else max(
+                float(r.abs().max()) for r in res_in)
             tr = trees(seed)
             ins = [{k: [t.clone() for t in v] for k, v in tr[r].items()}
                    for r in range(2)] if mode.startswith("wire") else None
@@ -1217,16 +1248,28 @@ def phase_xslice() -> dict:
                         require(torch.equal(got0, w),
                                 f"{mode}: {k} leaf of {w.numel()} differs "
                                 "from (a + b) / 2")
-                    elif name == "cold":
+                    else:
                         tol = wire_tolerance(mode, ins[0][k][i],
-                                             ins[1][k][i], w)
+                                             ins[1][k][i], w, carried)
                         err = (got0 - w).abs()
                         require(bool((err <= tol).all()),
-                                f"{mode}: {k} leaf {i} off by "
+                                f"{mode} {name}: {k} leaf {i} off by "
                                 f"{float(err.max())}")
-                        calls.setdefault("max_abs_err", 0.0)
-                        calls["max_abs_err"] = max(calls["max_abs_err"],
-                                                   float(err.max()))
+                        key = ("max_abs_err" if name == "cold"
+                               else "max_abs_err_warm")
+                        calls[key] = max(calls.get(key, 0.0),
+                                         float(err.max()))
+            if mode.startswith("wire"):
+                kept = [s._residuals["float32"] for s in shims]
+                if mode == "wire_bf16":
+                    require(all(torch.equal(got, sent) for got, sent in zip(
+                                tr[0]["float32"],
+                                wire_bf16_mean(ins, res_in, kept))),
+                            f"{mode} {name}: an f32 leaf differs from the "
+                            "mean of what the ranks sent")
+                if name == "warm":
+                    calls["residual_carried_max"] = carried
+                res_in = [r.clone() for r in kept]
             split = [{k.replace("_s", "_ms"): v * 1e3
                       for k, v in s.last_split.items()} for s in shims]
             calls[name] = {"wall_ms": wall * 1e3, "staged_bytes": staged,
@@ -1419,17 +1462,18 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
 RING_SIZES = ("4M", "64M", "1G")
 
 
-def allreduce_tool(args: list, env=None, ranks: int = 2) -> dict:
-    """The port's ``tools/allreduce.py`` as one process per rank (the
-    two ranks' links negotiate as path (d)'s do); rank 0's record."""
+def allreduce_tool(args: list, env=None) -> tuple:
+    """The port's ``tools/allreduce.py`` at world 2 as one process per
+    rank (the two ranks' links negotiate as path (d)'s do): rank 0's
+    record, and each rank's link tier as it reports it."""
     port = free_port() + 100
     cmd = [sys.executable, "-m", "rocnrdma_tpu_torch.tools.allreduce",
-           "--world", str(ranks), "--port", str(port), "--engine", "emu",
+           "--world", "2", "--port", str(port), "--engine", "emu",
            "--json"] + args
     procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True, env={**os.environ, **(env or {})})
-             for r in range(ranks)]
+             for r in range(2)]
     try:
         outs = [p.communicate(timeout=300) for p in procs]
     finally:
@@ -1437,36 +1481,34 @@ def allreduce_tool(args: list, env=None, ranks: int = 2) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+    tiers = []
     for r, (p, (out, err)) in enumerate(zip(procs, outs)):
         require(p.returncode == 0,
                 f"allreduce tool rank {r} exited {p.returncode}: "
                 f"{err[-2000:]}")
-    return json.loads(outs[0][0].strip().splitlines()[-1])
+        tier = [ln.split(":", 1)[1].strip() for ln in err.splitlines()
+                if ln.startswith("link tier:")]
+        require(len(tier) == 1, f"allreduce tool rank {r} gave no link "
+                f"tier: {err[-2000:]}")
+        tiers += tier
+    return json.loads(outs[0][0].strip().splitlines()[-1]), tiers
 
 
 def ring_threads(size: str, iters: int) -> tuple:
-    """The port's allreduce tool's ``run_rank`` on two threads of this
-    process (world 2, bf16): (bus GB/s, link tier)."""
+    """The port's allreduce tool's ``run_threads`` on two threads of
+    this process (world 2, bf16): (bus GB/s, link tier)."""
     from rocnrdma_tpu_torch.tools import allreduce as tool
 
     worlds = local_worlds(2, free_port() + 100, spec="emu")
-    tier = "stream" if worlds[0].left_qp.has_seal_payload else "cma"
-    count = tool.parse_sizes(size)[0] // 2
-    barrier = threading.Barrier(2)
-    dts = [0.0, 0.0]
-
-    def go(r):
-        dts[r] = tool.run_rank(worlds[r], count, torch.bfloat16, iters,
-                               barrier)
-
-    ts = [threading.Thread(target=go, args=(r,)) for r in range(2)]
-    for t in ts:
-        t.start()
-    for t in ts:
-        t.join()
-    for w in worlds:
-        w.close()
-    return count * 2 * tool.bus_fraction("allreduce", 2) / max(dts) / 1e9, tier
+    try:
+        tier = worlds[0].link_tier
+        count = tool.parse_sizes(size)[0] // 2
+        dt = tool.run_threads(worlds, count, torch.bfloat16, iters)
+    finally:
+        for w in worlds:
+            w.close()
+    require(dt > 0, f"ring threads at {size}: {dt} s per op")
+    return count * 2 * tool.bus_fraction("allreduce", 2) / dt / 1e9, tier
 
 
 def phase_ring_bus_by_size() -> dict:
@@ -1476,14 +1518,18 @@ def phase_ring_bus_by_size() -> dict:
     processes with the flight recorder on. Bus GB/s = bytes * 2(n-1)/n
     / s per op."""
     res = {"dtype": "bfloat16", "iters": 3, "world": 2,
-           "processes": {}, "threads": {}}
+           "processes": {}, "processes_link_tier": {}, "threads": {},
+           "threads_link_tier": {}}
     for size in RING_SIZES:
         args = ["--bytes", size, "--dtype", "bfloat16", "--iters", "3"]
-        res["processes"][size] = allreduce_tool(args)["bus_GBps"]
-        res["threads"][size], res["threads_link_tier"] = ring_threads(size, 3)
-    res["processes_64M_telemetry"] = allreduce_tool(
+        rec, res["processes_link_tier"][size] = allreduce_tool(args)
+        res["processes"][size] = rec["bus_GBps"]
+        res["threads"][size], res["threads_link_tier"][size] = \
+            ring_threads(size, 3)
+    rec, res["processes_link_tier"]["64M_telemetry"] = allreduce_tool(
         ["--bytes", "64M", "--dtype", "bfloat16", "--iters", "3"],
-        env={"TDR_TELEMETRY": "1"})["bus_GBps"]
+        env={"TDR_TELEMETRY": "1"})
+    res["processes_64M_telemetry"] = rec["bus_GBps"]
     return res
 
 

@@ -70,15 +70,6 @@ def params_digest(model) -> str:
     return h.hexdigest()
 
 
-def link_tier(world) -> str:
-    """How the emu engine moves payloads to the neighbour: "cma"
-    (cross-memory attach) or "stream" (over the socket, where payloads
-    are always sealed; on the CMA tier only with TDR_SEAL_CMA=1)."""
-    if world.engine.name != "emu":
-        return world.engine.name
-    return "stream" if world.left_qp.has_seal_payload else "cma"
-
-
 def step_telemetry(telemetry, eng, mark: dict) -> dict:
     """Drain the recorder after a step: the step's overlap fractions,
     the ring's split by native event, and the deltas of the dropped
@@ -159,7 +150,7 @@ def run_slice(rank: int, args) -> int:
     emit({"step": 0, "digest": params_digest(trainer.model),
           "config": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
           "remat": cfg.remat, "device": device, "engine": world.engine.name,
-          "link_tier": link_tier(world), "overlap": sync.overlap,
+          "link_tier": world.link_tier, "overlap": sync.overlap,
           "per_layer": sync.per_layer, "wire": sync.wire_dtype,
           "batch": args.batch, "seq": args.seq})
     if device == "cuda":

@@ -1156,6 +1156,16 @@ class RingWorld:
         except TransportError:
             return False
 
+    @property
+    def link_tier(self) -> str:
+        """How payloads reach the left neighbour: the engine's name, or
+        on the emu engine "cma" (cross-memory attach) or "stream" (over
+        the socket, where payloads are always sealed; on the CMA tier
+        only with TDR_SEAL_CMA=1)."""
+        if self.engine.name != "emu":
+            return self.engine.name
+        return "stream" if self.left_qp.has_seal_payload else "cma"
+
     def reduce_scatter_async(self, array,
                              op: int = RED_SUM) -> "CollectiveHandle":
         """Nonblocking in-place reduce-scatter on the ring's async

@@ -12,6 +12,9 @@ leave --peers out):
 
     python -m rocnrdma_tpu_torch.tools.allreduce --rank 0 --world 2 \\
         --peers hostA,hostB --bytes 1G --iters 5
+
+Each rank also writes its link tier to standard error ("link tier:
+cma" on the emu engine's cross-memory-attach tier).
 """
 
 from __future__ import annotations
@@ -77,6 +80,34 @@ def run_rank(world_obj, count: int, dtype, iters: int, barrier=None,
     return dt
 
 
+def run_threads(worlds, count: int, dtype, iters: int,
+                op: str = "allreduce") -> float:
+    """``run_rank`` on one thread per world of this process, the timed
+    loops started together: the slowest rank's seconds per op. A rank
+    that fails breaks the start barrier for the others, and its error
+    is raised here once every thread has ended."""
+    barrier = threading.Barrier(len(worlds))
+    out = [0.0] * len(worlds)
+    errs = []
+
+    def go(r):
+        try:
+            out[r] = run_rank(worlds[r], count, dtype, iters, barrier, op)
+        except BaseException as e:  # raised below
+            errs.append(e)
+            barrier.abort()
+
+    ts = [threading.Thread(target=go, args=(r,), daemon=True)
+          for r in range(len(worlds))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    if errs:
+        raise errs[0]
+    return max(out)
+
+
 # Useful bytes crossing each rank's link per op, as a fraction of the
 # buffer (standard bus-bandwidth conventions).
 def bus_fraction(op: str, world: int) -> float:
@@ -128,25 +159,17 @@ def main(argv=None):
 
     if args.rank is None:
         worlds = local_worlds(world, args.port, spec)
-        barrier = threading.Barrier(world)
-        out = [0.0] * world
-
-        def go(r):
-            out[r] = run_rank(worlds[r], count, dtype, args.iters, barrier,
-                              args.op)
-
-        ts = [threading.Thread(target=go, args=(r,)) for r in range(world)]
-        for t in ts:
-            t.start()
-        for t in ts:
-            t.join()
-        dt = max(out)
-        for w in worlds:
-            w.close()
+        print(f"link tier: {worlds[0].link_tier}", file=sys.stderr)
+        try:
+            dt = run_threads(worlds, count, dtype, args.iters, args.op)
+        finally:
+            for w in worlds:
+                w.close()
     else:
         peers = args.peers.split(",") if args.peers else None
         w = RingWorld(Engine(spec), args.rank, world, args.port,
                       peers=peers)
+        print(f"link tier: {w.link_tier}", file=sys.stderr)
         dt = run_rank(w, count, dtype, args.iters, op=args.op)
         if args.op in ("broadcast", "reduce"):
             # Root-asymmetric ops: time the collective end to end

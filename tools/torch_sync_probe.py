@@ -9,19 +9,20 @@ Prints one JSON line per measurement, then the card's name and power
 limit:
 
 - ``ring``: ``rocnrdma_tpu_torch/tools/allreduce.py`` at world 2 in
-  bf16, ``--iters`` per run, for every size as two rank processes
+  bf16, 5 iterations per run, for every size as two rank processes
   (their emu link negotiates as ``chip_smoke.py``'s path (d) does) and
   as two threads of one process, ``--repeats`` times in turns; the
   cross-process 64 MiB case also with ``TDR_TELEMETRY=1``, in turns
   with a run without, to size the recorder's cost;
 - ``step``: ``examples/two_slice_dp_torch.py`` at path (d)'s shape
   (llama3-1b bf16, remat, batch 2 x seq 2048 per rank, one batch, emu
-  engine), one warm step and ``--steps - 1`` timed ones, with the
-  recorder on, for the fused sync at the default 16 MiB staging chunk,
-  the fused sync at a 256 MiB chunk (``TDR_STAGE_CHUNK``), the bucketed
-  sync (``--overlap``) and the per-layer sync: per rank the mean step / grads / sync ms, the ring's
-  time per step by native event (``telemetry.ring_phase_split``), the
-  number of collectives per step and the overlap fractions.
+  engine), one warm step and 2 timed ones, with the recorder on, for
+  the fused sync at the default 16 MiB staging chunk, the fused sync at
+  a 256 MiB chunk (``TDR_STAGE_CHUNK``), the bucketed sync
+  (``--overlap``) and the per-layer sync: per rank the mean step /
+  grads / sync ms, the ring's time per step by native event
+  (``telemetry.ring_phase_split``), the number of collectives per step
+  and the overlap fractions.
 
 Needs a CUDA card; runs from the root of a checkout.
 """
@@ -36,6 +37,9 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
+
+ITERS = 5   # allreduce iterations per ring run
+STEPS = 3   # train steps per sync mode, the first one warm
 
 
 def step_means(ranks) -> list:
@@ -62,34 +66,35 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--repeats", type=int, default=2)
     ap.add_argument("--sizes", default="4M,16M,64M,256M,1G")
-    ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     if not cs.torch.cuda.is_available():
         raise SystemExit("torch_sync_probe.py needs a CUDA card")
     for rep in range(args.repeats):
         for size in args.sizes.split(","):
             tool_args = ["--bytes", size, "--dtype", "bfloat16",
-                         "--iters", str(args.iters)]
-            procs = cs.allreduce_tool(tool_args)["bus_GBps"]
-            threads, _tier = cs.ring_threads(size, args.iters)
-            cs.emit({"ring": size, "repeat": rep, "iters": args.iters,
-                     "processes_bus_GBps": procs,
-                     "threads_bus_GBps": threads})
+                         "--iters", str(ITERS)]
+            rec, procs_tier = cs.allreduce_tool(tool_args)
+            threads, threads_tier = cs.ring_threads(size, ITERS)
+            cs.emit({"ring": size, "repeat": rep, "iters": ITERS,
+                     "processes_bus_GBps": rec["bus_GBps"],
+                     "processes_link_tier": procs_tier,
+                     "threads_bus_GBps": threads,
+                     "threads_link_tier": threads_tier})
         for tel in ("0", "1"):
+            rec, tier = cs.allreduce_tool(
+                ["--bytes", "64M", "--dtype", "bfloat16",
+                 "--iters", str(ITERS)], env={"TDR_TELEMETRY": tel})
             cs.emit({"ring": "64M", "repeat": rep, "telemetry": tel,
-                     "processes_bus_GBps": cs.allreduce_tool(
-                         ["--bytes", "64M", "--dtype", "bfloat16",
-                          "--iters", str(args.iters)],
-                         env={"TDR_TELEMETRY": tel})["bus_GBps"]})
+                     "processes_bus_GBps": rec["bus_GBps"],
+                     "processes_link_tier": tier})
     env = {"TDR_TELEMETRY": "1", "TDR_TELEMETRY_RING": str(1 << 21)}
     for label, extra, more in (("fused_16M", [], {}),
                                ("fused_256M", [],
                                 {"TDR_STAGE_CHUNK": str(256 << 20)}),
                                ("overlap", ["--overlap"], {}),
                                ("per_layer", ["--per-layer"], {})):
-        ranks = cs.run_two_slice(extra, args.steps, {**env, **more})
-        cs.emit({"step": label, "steps": args.steps,
+        ranks = cs.run_two_slice(extra, STEPS, {**env, **more})
+        cs.emit({"step": label, "steps": STEPS,
                  "by_rank": step_means(ranks)})
     print(cs.nvidia_smi("name,power.limit"), flush=True)
     return 0
