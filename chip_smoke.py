@@ -59,7 +59,17 @@ the tensor-core route.
   ``TDR_TELEMETRY=1``: each layer's gradients pushed from the backward
   by post-accumulate-grad hooks; path (d)'s gates, parameter digests
   equal to path (d)'s after every step, the overlap fractions, the
-  recorder's dropped count and the ring's time split by native event.
+  recorder's dropped count and the ring's time split by native event;
+- path (f): path (d)'s two ranks under the port's coordinator (started
+  as a process) with ``--elastic-dir`` (a checkpoint every step); rank 1
+  SIGKILLs itself in its 3rd sync call and is started again, restores
+  its checkpoint and rejoins while rank 0 resumes: digests equal on
+  every rank and to path (d)'s after every step, one recovery and the
+  ranks' generation on the coordinator's ``/metrics``, rank 0's
+  postmortem bundle, launches per attempt equal to path (c)'s per step,
+  and the checkpoint bytes, save and restore ms, detection, rebuild and
+  rejoin times, the clean steps' ms against (d)'s and the finite check's
+  ms.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -81,6 +91,8 @@ import dataclasses
 import json
 import os
 import re
+import shutil
+import signal
 import socket
 import subprocess
 import sys
@@ -96,6 +108,7 @@ import torch.nn.functional as F
 from rocnrdma_tpu_torch.collectives.staging import staging
 from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
 from rocnrdma_tpu_torch.collectives.world import local_worlds
+from rocnrdma_tpu_torch.control import ControlClient
 from rocnrdma_tpu_torch.hbm import cuda as hcuda
 from rocnrdma_tpu_torch.hbm.registry import (HbmError, PeerClient,
                                              RegistrationManager)
@@ -1300,16 +1313,26 @@ def grad_bytes(cfg) -> int:
     return (cfg.param_count() - norms) * elt + norms * 4
 
 
+def two_slice_args(steps: int) -> list:
+    """``examples/two_slice_dp_torch.py``'s arguments for the card's
+    two-slice paths: llama3-1b bf16 with remat, batch 2 x seq 2048 per
+    rank, one batch per rank, the emu engine."""
+    cfg, b, s = llama.LLAMA3_1B, 2, 2048
+    return [str(REPO / "examples" / "two_slice_dp_torch.py"), "--world",
+            "2", "--engine", "emu", "--config", cfg.name, "--remat",
+            "--one-batch", "--batch", str(b), "--seq", str(s), "--steps",
+            str(steps)]
+
+
+def rank_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
 def run_two_slice(extra: list, steps: int, env=None) -> list:
     """``examples/two_slice_dp_torch.py`` as two rank processes on the
-    card: llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, one
-    batch per rank; each rank's JSON lines."""
-    cfg, b, s = llama.LLAMA3_1B, 2, 2048
-    port = free_port() + 100
-    cmd = [sys.executable, str(REPO / "examples" / "two_slice_dp_torch.py"),
-           "--world", "2", "--port", str(port), "--engine", "emu",
-           "--config", cfg.name, "--remat", "--one-batch", "--batch",
-           str(b), "--seq", str(s), "--steps", str(steps)] + extra
+    card (``two_slice_args``); each rank's JSON lines."""
+    cmd = [sys.executable] + two_slice_args(steps) + [
+        "--port", str(free_port() + 100)] + extra
     with tempfile.TemporaryDirectory() as tmp:
         outs = [open(os.path.join(tmp, f"r{r}.{k}"), "w+")
                 for r in range(2) for k in ("out", "err")]
@@ -1335,8 +1358,7 @@ def run_two_slice(extra: list, steps: int, env=None) -> list:
         require(rcs[r] == 0,
                 f"two-slice {extra} rank {r} exited {rcs[r]} (compute mode "
                 f"{compute_mode()}): {texts[2 * r + 1][-2000:]}")
-    return [[json.loads(ln) for ln in texts[2 * r].splitlines()
-             if ln.startswith("{")] for r in range(2)]
+    return [rank_lines(texts[2 * r]) for r in range(2)]
 
 
 def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
@@ -1416,6 +1438,29 @@ def phase_two_slice_dp(c_per_step: dict) -> dict:
     return res
 
 
+def against_path_d(digests: list, losses: list, d: dict, c_per_step: dict,
+                   what: str, fault: str) -> dict:
+    """A two-slice path's digests after every step against path (d)'s.
+    Where they differ, path (d) is run again: if (d) repeats its own
+    digests, the difference is a fault of ``fault``; if it does not,
+    the backward is not bitwise repeatable on this card and the path's
+    losses are held to (d)'s within 1e-3 relative instead."""
+    out = {"digests_equal_path_d": digests == d["digests"]}
+    if not out["digests_equal_path_d"]:
+        again, _ = two_slice_summary(run_two_slice([], 2), 2, c_per_step,
+                                     "path (d) repeat")
+        repeats = again["digests"] == d["digests"][:3]
+        out["path_d_repeats_its_digests"] = repeats
+        require(not repeats, f"{what}'s digests differ from path (d)'s, "
+                f"and (d) repeats its own: a fault of {fault}")
+        rel = max(abs(e - dd) / abs(dd) for le, ld in zip(losses,
+                                                          d["losses"])
+                  for e, dd in zip(le, ld))
+        require(rel <= 1e-3, f"{what} losses off (d)'s by {rel}")
+        out["loss_max_rel_diff_vs_d"] = rel
+    return out
+
+
 def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     """Path (e): path (d)'s command with ``--per-layer`` and the flight
     recorder on (drained after every step, its ring sized for a step).
@@ -1430,19 +1475,8 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     ranks = run_two_slice(["--per-layer"], steps, env)
     res, finals = two_slice_summary(ranks, steps, c_per_step, "path (e)")
     require(res["per_layer"], "path (e) did not run the per-layer sync")
-    res["digests_equal_path_d"] = res["digests"] == d["digests"]
-    if not res["digests_equal_path_d"]:
-        again, _ = two_slice_summary(run_two_slice([], 2), 2, c_per_step,
-                                     "path (d) repeat")
-        repeats = again["digests"] == d["digests"][:3]
-        res["path_d_repeats_its_digests"] = repeats
-        require(not repeats, "path (e)'s digests differ from path (d)'s, "
-                "and (d) repeats its own: a fault of the per-layer sync")
-        rel = max(abs(e - dd) / abs(dd) for le, ld in zip(res["losses"],
-                                                          d["losses"])
-                  for e, dd in zip(le, ld))
-        require(rel <= 1e-3, f"path (e) losses off (d)'s by {rel}")
-        res["loss_max_rel_diff_vs_d"] = rel
+    res.update(against_path_d(res["digests"], res["losses"], d, c_per_step,
+                              "path (e)", "the per-layer sync"))
     tel = [f["telemetry_timed_steps"] for f in finals]
     res["telemetry_by_rank"] = tel
     for key in ("overlap_fraction", "compute_overlap_fraction"):
@@ -1457,6 +1491,257 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
                           "it includes the last bucket's D2H on the copy "
                           "stream")
     return res
+
+
+# Rank 1 of path (f): the example behind a sync that SIGKILLs its process
+# at the given call, after writing the moment to its standard output.
+KILL_SWITCH = r"""
+import json, os, runpy, signal, sys, time
+from rocnrdma_tpu_torch.collectives import torch_shim
+
+DIE_AT = int(sys.argv[1])
+
+
+class KillSwitch(torch_shim.CrossSliceAllReduce):
+    calls = 0
+
+    def __call__(self, tree):
+        KillSwitch.calls += 1
+        if KillSwitch.calls == DIE_AT:
+            print(json.dumps({"killed_monotonic": time.monotonic()}),
+                  flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
+        return super().__call__(tree)
+
+
+torch_shim.CrossSliceAllReduce = KillSwitch
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+ELASTIC_STEPS, ELASTIC_DIE_AT = 4, 3
+ELASTIC_WORLD = "two-slice-dp"
+
+
+def checkpoint_root(need: int) -> tuple:
+    """A directory for path (f)'s checkpoints on the file system of the
+    temporary directory, and its free bytes; fails with the numbers
+    unless ``need`` bytes are free there."""
+    root = tempfile.gettempdir()
+    free = shutil.disk_usage(root).free
+    require(free >= need, f"path (f) needs {need} bytes for its "
+            f"checkpoints, {root} has {free} free")
+    return tempfile.mkdtemp(prefix="tdr-elastic-", dir=root), free
+
+
+def start_coordinator() -> tuple:
+    """The port's coordinator (``rocnrdma_tpu_torch.tools.rendezvous``)
+    as a process on a free port: (process, "host:port")."""
+    port = free_port()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "rocnrdma_tpu_torch.tools.rendezvous",
+         "--host", "127.0.0.1", "--port", str(port), "--lease-ms", "10000",
+         "--port-base", str(free_port() + 200)],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    require("listening on" in line, f"coordinator did not start: {line!r} "
+            f"{proc.stderr.read() if proc.poll() is not None else ''}")
+    return proc, f"127.0.0.1:{port}"
+
+
+def stop(proc) -> None:
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def run_elastic(addr: str, root: str) -> tuple:
+    """Path (f)'s ranks: rank 0 and rank 1 (behind ``KILL_SWITCH``);
+    once rank 1 is dead (it must die of SIGKILL), rank 1 again. Each
+    incarnation's standard output, and the monotonic moments rank 1 was
+    seen dead and started again."""
+    args = two_slice_args(ELASTIC_STEPS) + [
+        "--controller", addr, "--elastic-dir", os.path.join(root, "ck")]
+    env = {**os.environ, "TDR_RING_TIMEOUT_MS": "120000",
+           "TDR_POSTMORTEM_DIR": os.path.join(root, "postmortem")}
+    files = []
+
+    def spawn(rank: int, die_at: int):
+        out, err = (open(os.path.join(root, f"r{rank}.{len(files)}.{k}"),
+                         "w+") for k in ("out", "err"))
+        files.append((out, err))
+        return subprocess.Popen(
+            [sys.executable, "-c", KILL_SWITCH, str(die_at)] + args
+            + ["--rank", str(rank)], cwd=REPO, stdout=out, stderr=err,
+            env=env)
+
+    procs = [spawn(0, 0), spawn(1, ELASTIC_DIE_AT)]
+    deadline = time.monotonic() + 600
+    try:
+        procs[1].wait(timeout=300)
+        dead = time.monotonic()
+        if procs[1].returncode != -signal.SIGKILL:
+            files[1][1].seek(0)
+            raise RuntimeError(f"path (f) rank 1 exited "
+                               f"{procs[1].returncode}, not by SIGKILL: "
+                               f"{files[1][1].read()[-3000:]}")
+        procs.append(spawn(1, 0))
+        started = time.monotonic()
+        rcs = [p.wait(timeout=max(1, deadline - time.monotonic()))
+               for p in (procs[0], procs[2])]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for out, err in files:
+        out.seek(0)
+        err.seek(0)
+        texts.append((out.read(), err.read()))
+        out.close()
+        err.close()
+    for name, rc, (_, err) in (("rank 0", rcs[0], texts[0]),
+                               ("restarted rank 1", rcs[1], texts[2])):
+        require(rc == 0, f"path (f) {name} exited {rc}: {err[-3000:]}")
+    return [t[0] for t in texts], dead, started
+
+
+def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
+    """Path (f): path (d)'s two ranks under the port's coordinator, each
+    with ``ElasticPolicy(save_every=1, max_resumes=6)``; rank 1
+    SIGKILLs itself in its 3rd sync call and is started again. Gates:
+    rank 1 died of SIGKILL and came back from its checkpoint; rank 0
+    resumed and rebuilt; every step's digests equal on every rank and
+    equal to path (d)'s; one recovery on the coordinator and the
+    ranks' generation its; rank 0's postmortem bundle; each step's
+    launches path (c)'s per attempt."""
+    cfg = llama.LLAMA3_1B
+    ckpt_bytes = 3 * grad_bytes(cfg)          # params and two moments
+    root, free = checkpoint_root(2 * 2 * ckpt_bytes + (1 << 30))
+    coord, addr = start_coordinator()
+    try:
+        outs, dead, started = run_elastic(addr, root)
+        metrics = ControlClient(addr).metrics()
+        bundles = sorted(Path(root, "postmortem", ELASTIC_WORLD).glob(
+            "incident-g*/rank0.json"))
+        bundle = json.loads(bundles[0].read_text()) if bundles else None
+    finally:
+        stop(coord)
+        shutil.rmtree(root, ignore_errors=True)
+    r0, r1a, r1b = (rank_lines(t) for t in outs)
+    killed = [ln["killed_monotonic"] for ln in r1a if "killed_monotonic"
+              in ln]
+    require(len(killed) == 1, "path (f) rank 1 did not note its kill")
+    require(f"RESTORED 1 {ELASTIC_DIE_AT - 1}" in outs[2],
+            f"path (f) rank 1 did not restore step {ELASTIC_DIE_AT - 1}")
+    steps = {k: [] for k in range(ELASTIC_STEPS + 1)}
+    for lines in (r0, r1a, r1b):
+        for ln in lines:
+            if "digest" in ln:
+                steps[ln["step"]].append(ln)
+    for k, lines in steps.items():
+        require({ln["rank"] for ln in lines} == {0, 1},
+                f"path (f) step {k} reported by ranks "
+                f"{[ln['rank'] for ln in lines]}")
+        require(len({ln["digest"] for ln in lines}) == 1,
+                f"path (f) parameter digests differ after step {k}")
+    digests = [steps[k][0]["digest"] for k in range(ELASTIC_STEPS + 1)]
+    by_rank = [[ln for ln in r0 if ln.get("step", 0) > 0 and "loss" in ln],
+               [ln for ln in r1a + r1b if ln.get("step", 0) > 0
+                and "loss" in ln]]
+    losses = [[ln["loss"] for ln in lines] for lines in by_rank]
+    for r, lines in enumerate(by_rank):
+        require([ln["step"] for ln in lines]
+                == list(range(1, ELASTIC_STEPS + 1)),
+                f"path (f) rank {r} steps {[ln['step'] for ln in lines]}")
+        require(all(np.isfinite(losses[r])), f"rank {r} losses {losses[r]}")
+        for ln in lines:
+            want = {k: v * (1 + ln["resumes"]) for k, v in c_per_step.items()}
+            require(ln["launches"] == want,
+                    f"path (f) rank {r} step {ln['step']} launches "
+                    f"{ln['launches']} != {want}")
+    resumed = [ln for ln in by_rank[0] if ln["resumes"]]
+    require(len(resumed) == 1 and resumed[0]["step"] == ELASTIC_DIE_AT,
+            f"path (f) rank 0 resumed at steps "
+            f"{[(ln['step'], ln['resumes']) for ln in resumed]}")
+    res = resumed[0]
+    final0 = next(ln for ln in r0 if "final_digest" in ln)
+    final1 = next(ln for ln in r1b if "final_digest" in ln)
+    require(final0["resume"] >= 1 and final0["rebuild"] >= 1,
+            f"path (f) rank 0 counters: resume {final0['resume']}, "
+            f"rebuild {final0['rebuild']}")
+    series = f'{{world="{ELASTIC_WORLD}"}}'
+    served = {name: float(ln.split()[-1]) for ln in metrics.splitlines()
+              for name in ("generation", "rebuilds_total")
+              if ln.startswith(f"tdr_ctl_{name}{series} ")}
+    require(served.get("rebuilds_total") == 1,
+            f"coordinator recoveries {served} (one incident)")
+    # The ranks' generation moved at rank 0's failure report, at rank
+    # 1's rejoin and, where rank 1's lease ran out before it rejoined,
+    # at the expiry; the coordinator's moved twice more as both ranks
+    # left at the end.
+    require(final0["generation"] == final1["generation"] > 0
+            and served.get("generation") == final0["generation"] + 2,
+            f"coordinator generation {served} against the ranks' "
+            f"{final0['generation']} / {final1['generation']}")
+    require(bundle is not None and bundle["format"] == "tdr-postmortem-v1"
+            and bundle["incarnation"] is not None,
+            f"path (f) rank 0 postmortem bundle: {bundles}")
+    clean = [ln for lines in by_rank for ln in lines
+             if ln["step"] in (2, ELASTIC_STEPS)]
+    first1 = next(ln for ln in r1b if "ready_monotonic" in ln)
+    out = {"config": f"{cfg.name}/bf16/remat", "ranks": 2,
+           "steps": ELASTIC_STEPS, "killed_in_sync_call": ELASTIC_DIE_AT,
+           "checkpoint_dir_free_bytes": free,
+           "rank1_exit": "-SIGKILL", "digests": digests,
+           "digests_equal_every_step": True, "losses": losses,
+           "ckpt_bytes_by_rank": [lines[-1]["ckpt_bytes"]
+                                  for lines in by_rank],
+           "ckpt_save_ms_by_rank": [[ln["ckpt_save_ms"] for ln in lines]
+                                    for lines in by_rank],
+           "ckpt_d2h_ms_by_rank": [[ln["ckpt_d2h_ms"] for ln in lines]
+                                   for lines in by_rank],
+           "ckpt_write_ms_by_rank": [[ln["ckpt_write_ms"] for ln in lines]
+                                     for lines in by_rank],
+           "restore_ms_rank0_resume": res["restore_ms"],
+           "restore_read_h2d_ms_rank0_resume": [res["restore_read_ms"],
+                                                res["restore_h2d_ms"]],
+           "restore_ms_rank1_start": first1["restore_ms"],
+           "restore_read_h2d_ms_rank1_start": [first1["restore_read_ms"],
+                                               first1["restore_h2d_ms"]],
+           "detect_ms": (res["resume_monotonic"][0] - killed[0]) * 1e3,
+           "rank1_seen_dead_ms_after_kill": (dead - killed[0]) * 1e3,
+           "rebuild_ms": res["rebuild_ms"],
+           "rank1_start_to_world_s": first1["world_ready_monotonic"]
+           - started,
+           "rank1_start_to_rejoin_s": first1["ready_monotonic"] - started,
+           "resumed_step_ms": res["step_ms"],
+           "clean_step_ms": [ln["step_ms"] for ln in clean],
+           "clean_step_ms_mean": float(np.mean([ln["step_ms"]
+                                                for ln in clean])),
+           "clean_step_ms_less_save_mean": float(np.mean(
+               [ln["step_ms"] - ln["ckpt_save_ms"] for ln in clean])),
+           "path_d_step_ms_mean": d["step_ms_mean"],
+           "finite_ms_by_rank": [[ln["finite_ms"] for ln in lines]
+                                 for lines in by_rank],
+           "finite_ms_clean_mean": float(np.mean([ln["finite_ms"]
+                                                  for ln in clean])),
+           "coordinator": served,
+           "rank_generation": final0["generation"],
+           "postmortem": str(bundles[0].relative_to(
+               Path(root))) if bundles else None,
+           "launches": {name: sum(ln["launches"][name] for lines in by_rank
+                                  for ln in lines) for name in c_per_step},
+           "launches_per_step_per_rank": c_per_step,
+           "note": "detect_ms runs from rank 1's kill to rank 0's resume "
+                   "and includes whatever of rank 0's step was left"}
+    out.update(against_path_d(digests, losses, d, c_per_step, "path (f)",
+                              "the elastic resume"))
+    return out
 
 
 RING_SIZES = ("4M", "64M", "1G")
@@ -1589,13 +1874,16 @@ def main() -> int:
     dpl = run_phase("path_e_two_slice_dp_per_layer_llama3_1b_bf16",
                     phase_two_slice_dp_per_layer,
                     train["launches_per_step"], dp)
+    ela = run_phase("path_f_two_slice_elastic_llama3_1b_bf16",
+                    phase_two_slice_elastic, train["launches_per_step"], dp)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
                 "b_batcher": bat["launches"][name],
                 "c_train": train["launches"][name],
                 "d_two_slice_dp": dp["launches"][name],
-                "e_two_slice_dp_per_layer": dpl["launches"][name]}
+                "e_two_slice_dp_per_layer": dpl["launches"][name],
+                "f_two_slice_elastic": ela["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

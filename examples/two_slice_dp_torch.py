@@ -34,6 +34,25 @@ recorder's overlap fractions, its dropped count and the ring's time
 split by native event (``telemetry.ring_phase_split``; ``fold_busy_ms``
 from the ``fold.busy_us`` counter).
 
+Under a coordinator and elastic (``--controller`` instead of
+``--port``; start the coordinator first with ``python -m
+rocnrdma_tpu_torch.tools.rendezvous --port P``):
+
+    python examples/two_slice_dp_torch.py --cpu --steps 4 \
+        --controller 127.0.0.1:P --elastic-dir /tmp/ck
+
+``--controller HOST:PORT`` arbitrates the ranks' rendezvous and every
+rebuild there (``RingWorld(controller=...)``: the coordinator hands out
+the ports and the generation). ``--elastic-dir DIR`` arms
+``ElasticPolicy(DIR/rank<r>, save_every=1)``: every step is
+checkpointed, a rank that loses its peer mid-step rebuilds the world,
+restores and re-runs the step, and a rank that starts where its
+checkpoint exists restores it first (printing ``RESTORED <rank>
+<step>``) and trains on from that step, drawing its batches as the
+uninterrupted run did. The rebuild budget (30 attempts, each parked up
+to 60 s at the rendezvous) covers a restarted llama3-1b rank's start-up
+and restore.
+
 Without ``--rank`` the script starts one subprocess per rank (CUDA
 cannot be forked once initialised) and exits non-zero if any fails.
 Every rank starts from ``init_params(seed=0)`` and draws its data
@@ -45,7 +64,15 @@ JSON line per step — loss, step ms, the grads / sync / apply ms, the
 staged gather / ring / scatter ms, staged bytes, each kernel's launches
 and a sha256 of its parameters' bytes — after a first line with the
 digest of the initial parameters, and a last line with the final digest
-and peak device memory.
+and peak device memory. With ``--elastic-dir`` a step's line also
+carries its checkpoint's bytes and save ms (and the device-to-host copy
+and the file write in it), the finite check's ms, the resumes it took
+and, for each, the rebuild and restore ms and the ``time.monotonic()``
+at which the resume began; the first line carries the restored step,
+the restore ms (the file read and the host-to-device copy in it) and
+the ``time.monotonic()`` readings at which the world was up and the
+rank ready; the last line the world's generation and the trainer's
+resume and rebuild counts.
 """
 
 import argparse
@@ -118,8 +145,11 @@ def run_slice(rank: int, args) -> int:
     from rocnrdma_tpu_torch.collectives.world import RingWorld
     from rocnrdma_tpu_torch.hbm.cuda import CUDAExporter
     from rocnrdma_tpu_torch.ops import _native
-    from rocnrdma_tpu_torch.parallel.trainer import Trainer
+    from rocnrdma_tpu_torch.parallel.checkpoint import (checkpoint_file,
+                                                        restore_checkpoint)
+    from rocnrdma_tpu_torch.parallel.trainer import ElasticPolicy, Trainer
     from rocnrdma_tpu_torch.transport import engine as eng
+    from rocnrdma_tpu_torch.utils.trace import trace
 
     device = "cpu" if args.cpu else "cuda"
     if device == "cuda":
@@ -129,17 +159,39 @@ def run_slice(rank: int, args) -> int:
         # Before the engine: the collective ids ride the handshake.
         telemetry.reset()
     peers = args.peers.split(",") if args.peers else None
-    world = RingWorld(eng.Engine(args.engine), rank, args.world, args.port,
-                      peers=peers)
+    if args.controller:
+        world = RingWorld(eng.Engine(args.engine), rank, args.world,
+                          peers=peers, controller=args.controller,
+                          world_name="two-slice-dp")
+    else:
+        world = RingWorld(eng.Engine(args.engine), rank, args.world,
+                          args.port, peers=peers)
+    world_ready = time.monotonic()
     # CPU gradients are adopted and reduced in place (zero staged
     # bytes); CUDA gradients are staged through pinned host memory.
     sync = CrossSliceAllReduce(world, exporter=CUDAExporter(), mean=True,
                                overlap=args.overlap,
                                per_layer=args.per_layer)
     overrides = {"remat": True} if args.remat else {}
+    elastic = None
+    if args.elastic_dir:
+        os.makedirs(args.elastic_dir, exist_ok=True)
+        elastic = ElasticPolicy(
+            os.path.join(args.elastic_dir, f"rank{rank}"), save_every=1,
+            max_resumes=6, rebuild=dict(max_attempts=30, backoff_s=0.5,
+                                        backoff_cap_s=4.0,
+                                        timeout_ms=60000))
     trainer = Trainer(args.config, cross_slice_sync=sync, seed=0,
-                      device=device, **overrides)
+                      device=device, elastic=elastic, **overrides)
     cfg = trainer.cfg
+    start, restore_ms = 0, None
+    if elastic and os.path.exists(checkpoint_file(elastic.checkpoint_path)):
+        t0 = time.perf_counter()
+        start = restore_checkpoint(elastic.checkpoint_path, trainer)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        print(f"RESTORED {rank} {start}", flush=True)
     rng = np.random.default_rng(1234 + rank)   # per-slice data shard
 
     def emit(obj):
@@ -147,7 +199,15 @@ def run_slice(rank: int, args) -> int:
         sys.stdout.write(json.dumps({"rank": rank, **obj}) + "\n")
         sys.stdout.flush()
 
-    emit({"step": 0, "digest": params_digest(trainer.model),
+    first = {}
+    if restore_ms is not None:
+        restored = trace.events("ckpt.restore")[-1][2]
+        first = {"restored_step": start, "restore_ms": restore_ms,
+                 "restore_read_ms": restored["read_s"] * 1e3,
+                 "restore_h2d_ms": restored["h2d_s"] * 1e3}
+    emit({"step": start, "digest": params_digest(trainer.model), **first,
+          "world_ready_monotonic": world_ready,
+          "ready_monotonic": time.monotonic(),
           "config": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
           "remat": cfg.remat, "device": device, "engine": world.engine.name,
           "link_tier": world.link_tier, "overlap": sync.overlap,
@@ -164,7 +224,10 @@ def run_slice(rank: int, args) -> int:
         if tokens is None or not args.one_batch:
             tokens = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (args.batch, args.seq + 1)))
+        if step <= start:
+            continue  # restored past it; its batch was drawn all the same
         staged0 = staging.bytes
+        resumes0 = len(trace.events("trainer.resume"))
         _native.reset_launches()
         t0 = time.perf_counter()
         loss = trainer.step(tokens)
@@ -176,12 +239,29 @@ def run_slice(rank: int, args) -> int:
                 "staged_bytes": staging.bytes - staged0,
                 "launches": _native.launches(),
                 "digest": params_digest(trainer.model)}
+        if elastic:
+            resumed = trace.events("trainer.resume")[resumes0:]
+            saved = trace.events("ckpt.save")[-1][2]
+            line.update(
+                resumes=len(resumed),
+                resume_monotonic=[t for t, _name, _f in resumed],
+                ckpt_bytes=os.path.getsize(
+                    checkpoint_file(elastic.checkpoint_path)),
+                ckpt_d2h_ms=saved["d2h_s"] * 1e3,
+                ckpt_write_ms=saved["write_s"] * 1e3)
+            if resumed:
+                restored = trace.events("ckpt.restore")[-1][2]
+                line.update(restore_read_ms=restored["read_s"] * 1e3,
+                            restore_h2d_ms=restored["h2d_s"] * 1e3)
         if recording:
             line.update(step_telemetry(telemetry, eng, mark))
             if step > 1:
                 recorded.append(line)
         emit(line)
     last = {"final_digest": params_digest(trainer.model),
+            "generation": world.generation,
+            "resume": trace.counter("trainer.resume"),
+            "rebuild": trace.counter("world.rebuild"),
             "peak_mem_gb": (torch.cuda.max_memory_allocated() / 1e9
                             if device == "cuda" else None)}
     if recorded:
@@ -201,6 +281,13 @@ def main():
     ap.add_argument("--peers", default=None,
                     help="comma-separated slice hosts (default: localhost)")
     ap.add_argument("--port", type=int, default=28100)
+    ap.add_argument("--controller", default=None, metavar="HOST:PORT",
+                    help="rendezvous through this coordinator instead of "
+                         "on --port")
+    ap.add_argument("--elastic-dir", default=None, metavar="DIR",
+                    help="ElasticPolicy(DIR/rank<r>, save_every=1): "
+                         "checkpoint every step, resume after a peer's "
+                         "death, restore at start-up")
     ap.add_argument("--engine", default="auto")
     ap.add_argument("--config", default="llama-tiny",
                     help="llama-tiny | llama3-1b | llama3-8b")

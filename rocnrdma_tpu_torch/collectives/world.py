@@ -32,10 +32,16 @@ the error that forced it and the schedule digest (format
 ``tdr-postmortem-v1``, the JAX package's), which
 ``tools/tdr_explain.py --postmortem`` merges.
 
-**Not ported yet** (ROADMAP Queue 1 item 2b): the coordinator path
-(``controller=`` — arbitrated rendezvous, member leases, world RESIZE)
-and its heartbeat need a port of the JAX package's ``control``;
-asking for it raises ``NotImplementedError``.
+**Arbitrated rendezvous.** Pass ``controller=`` (a coordinator
+address or ``ControlClient``) and a ``world_name`` and the per-rank
+guesswork above is replaced by a single owner of lifecycle state
+(``rocnrdma_tpu_torch.control``): the coordinator names the world, hands
+out the base port and generation, holds member leases renewed by a
+background heartbeat, and arbitrates elastic rejoin — every surviving
+or rejoining rank parks at the coordinator's rendezvous barrier and
+receives the SAME membership view (generation + epoch), so no rank
+ever guesses the next generation locally. The legacy pairwise path
+(no coordinator) is unchanged and test-pinned as the fallback.
 
 **Multi-tenancy.** One Engine may host several concurrent named
 worlds (``qp_budget`` bounds each world's QP appetite at bring-up;
@@ -46,7 +52,7 @@ other's frames — so stale-world protection there degrades to the
 schedule-digest generation check, which is per world.
 
 **Hierarchical topologies.** A world whose host-key topology map
-(``topology=`` / TDR_TOPOLOGY)
+(``topology=`` / TDR_TOPOLOGY / coordinator-view ``host_keys``)
 partitions the ranks into >= 2 uniform intra-host groups can run its
 allreduces on the two-tier schedule: intra-host reduce-scatter →
 inter-host delegate-ring allreduce over the owned shard → intra-host
@@ -83,12 +89,6 @@ from rocnrdma_tpu_torch.transport.engine import (Engine, QueuePair, Ring,
                                                  ring_channels_default,
                                                  seal_retry_budget)
 from rocnrdma_tpu_torch.utils.trace import trace
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to rocnrdma_tpu_torch yet (ROADMAP.md "
-        "Queue 1, item 2b, entry 6: control/)")
 
 
 def _np_view(array):
@@ -386,16 +386,18 @@ class RingWorld:
         controller=None,
         world_name: str = "default",
         qp_budget: Optional[int] = None,
-        topology=None,  # host-key list, None (env), or "flat"
+        topology=None,  # host-key list, None (env/view), or "flat"
         tier: str = "auto",  # "stream" pins connections off the CMA tier
+        resizable: bool = False,  # opt into coordinator RESIZE
+        max_size: int = 0,        # grow ceiling (0 = unbounded)
+        weight: float = 1.0,      # fair-share weight for the QP pool
     ):
-        if controller is not None:
-            raise _not_ported("RingWorld(controller=...) (the coordinator "
-                              "path and its heartbeat)")
         if world < 2:
             raise ValueError("RingWorld needs world >= 2")
-        if base_port is None:
-            raise ValueError("base_port is required")
+        if base_port is None and controller is None:
+            raise ValueError("base_port is required without a "
+                             "controller (arbitrated worlds get their "
+                             "port range from the coordinator)")
         self.engine = engine
         self.rank = rank
         self.world = world
@@ -428,15 +430,42 @@ class RingWorld:
             self.channels = ring_channels_default()
         if self.channels < 1:
             raise ValueError("channels must be >= 1")
-        # Incarnation number of this ring; monotonic: the bootstrap
-        # exchange adopts the ring maximum, so a restarted rank
-        # (proposing its stale or zero count) catches up with the
-        # survivors' rebuild() bumps.
+        # Incarnation number of this ring; monotonic. Legacy path: the
+        # bootstrap exchange adopts the ring maximum, so a restarted
+        # rank (proposing its stale or zero count) catches up with the
+        # survivors' rebuild() bumps. Arbitrated path: the COORDINATOR
+        # owns this number — every bump is a membership or failure
+        # decision it made, and ranks only ever adopt its view.
         self.generation = int(generation)
+        # Arbitrated-rendezvous state (None controller = legacy path).
+        if isinstance(controller, str):
+            from rocnrdma_tpu_torch.control.client import ControlClient
+
+            controller = ControlClient(controller)
+        self.controller = controller
         self.world_name = str(world_name)
         self.qp_budget = None if qp_budget is None else int(qp_budget)
+        self._ctl_inc: Optional[int] = None  # coordinator incarnation
+        self._ctl_epoch = 0                  # membership view counter
+        self._ctl_lease_ms = 5000
+        self._hb = None                      # background lease renewal
+        # ---- Elastic membership (world RESIZE) ----
+        # resizable opts this world into coordinator-arbitrated
+        # shrink-to-survivors / grow-on-join; the coordinator's resize
+        # counter rides the view and (when nonzero) the schedule
+        # digest, so ranks disagreeing on the membership SHAPE fail
+        # the first collective fast. _resize_pending is raised by the
+        # heartbeat's resize hint: the next collective fails RETRYABLE
+        # so the elastic ladder re-rendezvouses at a collective
+        # boundary, where the coordinator cuts the new-size view.
+        self.resizable = bool(resizable)
+        self.max_size = int(max_size)
+        self.weight = float(weight)
+        self._ctl_resizes = 0
+        self._resize_pending = False
         # QP appetite this incarnation reserved at bring-up (flat ring
-        # + hierarchical tier rings).
+        # + hierarchical tier rings), heartbeat-pushed so the
+        # coordinator serves tdr_ctl_qp_reserved{world=}.
         self._qp_reserved = 0
         # Warn-once latch for the hier->flat topology fallback.
         self._fallback_warned = False
@@ -466,7 +495,7 @@ class RingWorld:
         self._async_live = 0
         # ---- Hierarchical topology (ROADMAP item 1) ----
         # ``topology``: an explicit host-key list, None (resolve from
-        # TDR_TOPOLOGY), or
+        # TDR_TOPOLOGY, else the coordinator view's host_keys), or
         # "flat" (disabled — what the tier sub-worlds themselves pass
         # so tiers never recurse). ``tier="stream"`` pins every
         # connection of THIS world off the CMA fast path (the
@@ -480,6 +509,7 @@ class RingWorld:
             raise ValueError(f"tier={tier!r}: expected 'auto' or "
                              "'stream'")
         self.topology: Optional[TopologyMap] = None
+        self._ctl_host_keys: Optional[List[str]] = None
         # Tier sub-worlds (lazily built at the first hierarchical
         # collective of each incarnation; torn down with it).
         self._tier_intra: Optional["RingWorld"] = None
@@ -488,7 +518,7 @@ class RingWorld:
         # Tail of the phased-handle chain (per-ring submission-order
         # determinism for async hier/staged collectives).
         self._phased_tail = None
-        # ---- Fleet tracing (collective ids) ----
+        # ---- Fleet tracing (collective ids + postmortems) ----
         # Per-world monotonic collective trace id: stamped on the
         # ring before EVERY native collective (and wire-carried to the
         # peer under FEAT_COLL_ID), so two ranks' flight-recorder
@@ -499,7 +529,8 @@ class RingWorld:
         self._coll_seq = 0
         self._coll_override: Optional[int] = None
         # Black-box postmortem bundles this world has written
-        # (TDR_POSTMORTEM_DIR).
+        # (TDR_POSTMORTEM_DIR; pushed via heartbeat so the coordinator
+        # serves tdr_postmortems_total{world=}).
         self._postmortems = 0
         try:
             self._bootstrap(timeout_ms)
@@ -548,9 +579,26 @@ class RingWorld:
         On failure nothing usable is left behind (partial QPs are
         closed); the Engine stays reusable."""
         self.engine.attach_world(self)
+        arbitrated = self.controller is not None
+        if arbitrated:
+            # The coordinator's rendezvous barrier replaces the
+            # per-rank generation guesswork: every rank of this
+            # incarnation receives the SAME membership view here (and,
+            # on a RESIZE, the new world size and this rank's repacked
+            # position).
+            self._ctl_rendezvous(timeout_ms)
+        if self._channels_auto:
+            # Re-derive the per-host channel cap from THIS
+            # incarnation's membership: a RESIZE changes the peer
+            # list, and with it the local-rank count the cap divides
+            # the core budget by.
+            self.channels = auto_channel_cap(self.peers, self.rank)
         # Topology map for the hierarchical schedule: explicit param >
-        # TDR_TOPOLOGY. Tiers themselves pass topology="flat" and never
-        # recurse. A non-hierarchical map (one host,
+        # TDR_TOPOLOGY > the coordinator view's host keys. Resolved
+        # per incarnation (an arbitrated rebuild or RESIZE may release
+        # different membership — a shrink that restores uniform groups
+        # re-enables hier here); tiers themselves pass topology="flat"
+        # and never recurse. A non-hierarchical map (one host,
         # singleton groups, uneven groups) still resolves — the
         # selector just never picks hier for it — and the multi-host
         # shapes that LOOK hierarchical but cannot carry the schedule
@@ -559,7 +607,8 @@ class RingWorld:
             self.topology = None
         else:
             self.topology = resolve_topology(
-                self.world, self.rank, explicit=self._topology_arg)
+                self.world, self.rank, explicit=self._topology_arg,
+                view_keys=self._ctl_host_keys)
         fb = fallback_reason(self.topology)
         if fb and not self._fallback_warned:
             self._fallback_warned = True
@@ -656,10 +705,16 @@ class RingWorld:
             self._sched_verified = b""
             self._barrier_buf = None
             self._ensure_digest_bufs()
-            # Circulate the ring-maximum generation proposal.
-            self._exchange_generation(timeout_ms)
-            # Seal context only AFTER the generation is agreed (the ring
-            # maximum): a premature stamp would
+            if not arbitrated:
+                # Legacy pairwise path: circulate the ring-maximum
+                # proposal. Arbitrated worlds already HOLD the
+                # coordinator's generation — exchanging proposals
+                # would reintroduce exactly the rank-local guessing
+                # the coordinator exists to remove (and it saves
+                # world-1 bootstrap hops).
+                self._exchange_generation(timeout_ms)
+            # Seal context only AFTER the generation is agreed (ring
+            # maximum or coordinator view): a premature stamp would
             # fence the frames that reconcile differing proposals.
             # From here on, every outbound seal names this incarnation
             # and stale-world ghosts fail verification — unless the
@@ -674,6 +729,8 @@ class RingWorld:
         except BaseException:
             self._teardown()
             raise
+        if arbitrated:
+            self._ensure_heartbeat()
         # tel_engine ties this rank to its native flight-recorder
         # track, so exporters label the engine timeline "rank N";
         # tel_left/tel_right name the per-channel QP lanes (chunk
@@ -684,8 +741,257 @@ class RingWorld:
                     tel_engine=self.engine.telemetry_id,
                     channels=self.channels,
                     world_name=self.world_name,
+                    arbitrated=int(arbitrated),
                     tel_left=[qp.telemetry_id for qp in self.left_qps],
                     tel_right=[qp.telemetry_id for qp in self.right_qps])
+
+    # --------------------------------------------------- control plane
+
+    def _ctl_rendezvous(self, timeout_ms: int) -> None:
+        """Park at the coordinator's rendezvous barrier and adopt its
+        membership view (generation, epoch, base port, peers). A
+        surviving member re-syncs under its existing incarnation; a
+        fresh or superseded member joins for a new one. Raises a
+        retryable TransportError on arbitration refusal (rendezvous
+        timeout, coordinator unreachable) so rebuild()'s attempt loop
+        paces the retry."""
+        from rocnrdma_tpu_torch.control.client import ControlError
+
+        timeout_s = max(1.0, timeout_ms / 1000.0)
+        view = None
+        try:
+            if self._ctl_inc is not None:
+                view = self.controller.sync(self.world_name, self.rank,
+                                            self._ctl_inc,
+                                            timeout_s=timeout_s)
+                if not view.get("ok"):
+                    if view.get("error") != "superseded":
+                        raise TransportError(
+                            f"control sync failed on rank {self.rank}: "
+                            f"{view.get('error')}", retryable=True)
+                    # The coordinator lease-expired (or replaced) this
+                    # incarnation while we were down: rejoin fresh.
+                    self._ctl_inc = None
+                    view = None
+            if view is None:
+                host = (self.peers[self.rank]
+                        if self.peers and 0 <= self.rank < len(self.peers)
+                        else "127.0.0.1")
+                # Topology key for this member (explicit/env override
+                # first; the dial address otherwise): released to
+                # every slot in the view as host_keys.
+                key = None
+                keys = self._topology_arg
+                if keys is None or keys == "flat":
+                    from rocnrdma_tpu_torch.collectives.topology import \
+                        parse_env_topology
+
+                    try:
+                        keys = parse_env_topology(self.world)
+                    except ValueError:
+                        keys = None
+                if keys and keys != "flat" and \
+                        0 <= self.rank < len(keys):
+                    key = str(keys[self.rank])
+                view = self.controller.join(self.world_name, self.world,
+                                            rank=self.rank, host=host,
+                                            host_key=key,
+                                            timeout_s=timeout_s,
+                                            resizable=self.resizable,
+                                            max_size=self.max_size,
+                                            weight=self.weight)
+                if not view.get("ok"):
+                    raise TransportError(
+                        f"control join failed on rank {self.rank}: "
+                        f"{view.get('error')}", retryable=True)
+        except ControlError as e:
+            raise TransportError(str(e), retryable=True) from e
+        # Adopt the coordinator-ASSIGNED ring position: rank=-1 asks
+        # for the lowest free slot, and the whole port/neighbor scheme
+        # below keys off self.rank. A RESIZE view also moves the world
+        # SIZE — a shrink repacked the survivors contiguously, a grow
+        # admitted a parked joiner past the old end — so the size is
+        # adopted with the same authority as the rank.
+        self.rank = int(view.get("rank", self.rank))
+        self.world = int(view.get("world_size", self.world))
+        old_resizes = self._ctl_resizes
+        self._ctl_resizes = int(view.get("resizes", 0))
+        if self._ctl_resizes != old_resizes:
+            trace.add("ctl.resize_adopted", 1)
+            trace.event("ctl.resize_adopted", rank=self.rank,
+                        world_name=self.world_name,
+                        world=self.world, resizes=self._ctl_resizes)
+        self._resize_pending = False
+        self._ctl_inc = int(view["incarnation"])
+        self.generation = int(view["generation"])
+        self._ctl_epoch = int(view["epoch"])
+        self.base_port = int(view["base_port"])
+        self._ctl_lease_ms = int(view.get("lease_ms", 5000))
+        peers = view.get("peers")
+        if peers:
+            self.peers = [str(p) for p in peers]
+        # Adopt the view's topology keys only when EVERY slot carries
+        # one: a partially-keyed membership must resolve flat, never
+        # guess (and dial addresses are deliberately not a fallback).
+        host_keys = view.get("host_keys")
+        self._ctl_host_keys = (
+            [str(k) for k in host_keys]
+            if host_keys and all(k is not None for k in host_keys)
+            else None)
+        budget = int(view.get("qp_budget") or 0)
+        if budget:
+            # Coordinator-assigned per-world budget: the stricter of
+            # the two bounds wins.
+            self.qp_budget = (budget if self.qp_budget is None
+                              else min(self.qp_budget, budget))
+        trace.event("ctl.view", rank=self.rank,
+                    world_name=self.world_name,
+                    generation=self.generation, epoch=self._ctl_epoch,
+                    base_port=self.base_port,
+                    incarnation=self._ctl_inc)
+
+    def _ensure_heartbeat(self) -> None:
+        """Start (once) the background lease renewal, pushing native
+        counter/histogram snapshots so the coordinator's /metrics
+        serves this member's chunk latencies and integrity ladder.
+        The thread holds only a WEAK reference to this world: an
+        abandoned (never-closed) world must stay collectable — its
+        engine tenancy entry is a WeakSet — and its lease must AGE OUT
+        at the coordinator (a strong ref would renew a dead
+        incarnation's lease forever and park surviving peers'
+        rendezvous until timeout)."""
+        if self._hb is not None:
+            return
+        import weakref
+
+        wself = weakref.ref(self)
+
+        def _state():
+            w = wself()
+            if w is None:
+                return None  # world collected: heartbeat thread exits
+            # Rank rides along: a RESIZE moves this member's ring
+            # position under the SAME incarnation, and the heartbeat
+            # must follow it (the old rank's pushes are superseded).
+            return (w._ctl_inc, w.generation, w.rank)
+
+        def _counters():
+            from rocnrdma_tpu_torch.transport.engine import native_counters
+
+            snap = dict(native_counters())
+            snap.update(trace.counters_prefixed("world."))
+            snap.update(trace.counters_prefixed("ctl."))
+            snap.update(trace.counters_prefixed("trainer."))
+            # Which algorithm carried the collectives (flat / hier /
+            # staged call counts — the selector made observable on
+            # /metrics as tdr_algo_*_total).
+            snap.update(trace.counters_prefixed("algo."))
+            # Serving SLO counters (tdr_serve_requests_total /
+            # tdr_serve_tokens_total — the continuous batcher's
+            # request/token tallies ride the same heartbeat).
+            snap.update(trace.counters_prefixed("serve."))
+            return snap
+
+        def _hists():
+            from rocnrdma_tpu_torch.transport.engine import \
+                telemetry_histograms
+
+            out = {name: {i: c for i, c in enumerate(buckets) if c}
+                   for name, buckets in telemetry_histograms().items()}
+            # Python-tier fine histograms (log2×8 — serving token
+            # latency). The marker bucket {64: 0} forces the
+            # coordinator's reconstructed row past 64 entries, so
+            # hist_percentile reads it with fine-octave edges while
+            # the native 64-octave rows keep their interpretation.
+            for name, row in trace.hists().items():
+                merged = out.setdefault(name, {})
+                merged.setdefault(64, 0)
+                for b, c in row.items():
+                    merged[b] = merged.get(b, 0) + c
+            return out
+
+        def _trace_segment(max_events):
+            # collect_trace pull: one bounded flight-recorder window
+            # (destructive drain — flight-recorder semantics) plus the
+            # cumulative drop count so the merge can mark a truncated
+            # ring as tainted instead of silently under-reporting.
+            from rocnrdma_tpu_torch import telemetry as tel
+            from rocnrdma_tpu_torch.transport.engine import telemetry_dropped
+
+            if not tel.enabled():
+                return {"events": [], "dropped": 0, "disabled": True}
+            dropped = int(telemetry_dropped())
+            events = tel.timeline()
+            if len(events) > max_events:
+                # The truncation is a loss too: count it into the
+                # taint signal, or the merge would mark a visibly
+                # one-sided window as complete.
+                dropped += len(events) - max_events
+                events = events[-max_events:]
+            return {"events": tel.events_to_wire(events),
+                    "dropped": dropped}
+
+        def _postmortems():
+            w = wself()
+            return 0 if w is None else w._postmortems
+
+        def _notify(resp):
+            # The coordinator's RESIZE hint: membership no longer
+            # matches this incarnation's shape (a grow joiner parked,
+            # or a slot died on a resizable world). Flag it so the
+            # NEXT collective fails retryably at its entry boundary
+            # and the elastic ladder re-parks for the new-size view —
+            # heartbeats are how a healthy member learns about a
+            # resize that broke nothing it can observe on the wire.
+            w = wself()
+            if w is not None and resp.get("resize_pending"):
+                w._resize_pending = True
+
+        def _extras():
+            # Bring-up QP reservation, pushed so the coordinator can
+            # serve tdr_ctl_qp_reserved{world=} (reserved appetite vs
+            # the fair share it granted) — plus the link-health
+            # snapshot and degradation tally, served as
+            # tdr_link_health{world=,rank=,peer=} and
+            # tdr_degraded_total{world=} (slow-rank quarantine: the
+            # coordinator names WHICH link the ladder degraded).
+            w = wself()
+            if w is None:
+                return {}
+            ex = {"qp_reserved": w._qp_reserved}
+            hs = _health.snapshot(w.world_name)
+            if hs:
+                ex["link_health"] = hs
+                ex["degraded_total"] = _health.degraded_total(
+                    w.world_name)
+            return ex
+
+        self._hb = self.controller.start_heartbeat(
+            self.world_name, self.rank, state_fn=_state,
+            interval_s=max(0.2, self._ctl_lease_ms / 3000.0),
+            counters_fn=_counters, hists_fn=_hists,
+            trace_fn=_trace_segment, postmortems_fn=_postmortems,
+            notify_fn=_notify, extras_fn=_extras)
+
+    @property
+    def control_stamp(self) -> str:
+        """Arbitration term for the schedule digest: the coordinator's
+        generation and membership epoch. Empty (legacy digests are
+        preserved byte-for-byte) without a controller; with one, two
+        ranks acting on different membership views fail the first
+        collective's digest exchange instead of desynchronizing. A
+        RESIZE stamps its count in too — generation alone also moves,
+        but the resize count makes "same generation, different world
+        shape" (a restore racing a resize) structurally impossible to
+        agree on. Worlds that never resized keep the legacy stamp
+        byte-for-byte."""
+        if self.controller is None:
+            return ""
+        stamp = (f"ctl={self.world_name}:g{self.generation}"
+                 f":e{self._ctl_epoch}")
+        if self._ctl_resizes:
+            stamp += f":r{self._ctl_resizes}"
+        return stamp
 
     def _ensure_digest_bufs(self) -> None:
         if self._dg_smr is not None:
@@ -720,7 +1026,16 @@ class RingWorld:
         """The ring, or a RETRYABLE error when this incarnation is
         torn down (a flapped rank's collectives between teardown and
         rebuild must surface as elastic-recoverable, not as an
-        AttributeError the trainer cannot classify)."""
+        AttributeError the trainer cannot classify). A pending world
+        RESIZE surfaces here too: the coordinator cuts the new-size
+        view at a COLLECTIVE BOUNDARY, so a member that learned of one
+        via its heartbeat must fail the next collective retryably and
+        re-park rather than run it at a shape the fleet is leaving."""
+        if self._resize_pending:
+            raise TransportError(
+                f"world RESIZE pending on rank {self.rank} (membership "
+                "no longer matches this incarnation's shape); "
+                "rebuild() required", retryable=True)
         ring = self.ring
         if ring is None:
             raise TransportError(
@@ -1456,31 +1771,44 @@ class RingWorld:
         generation at bootstrap). Raises a non-retryable
         ``TransportError`` when the budget is exhausted.
 
-        This rank bumps its own generation proposal; the bootstrap
-        exchange circulates the ring maximum.
+        **Legacy path** (no controller): this rank bumps its own
+        generation proposal; the bootstrap exchange circulates the
+        ring maximum. **Arbitrated path**: the failure is REPORTED to
+        the coordinator — the first report of an incident moves the
+        world's generation, every later one just learns it — and each
+        bootstrap attempt parks at the coordinator's rendezvous
+        barrier, adopting whatever membership view it releases. No
+        rank-local generation arithmetic happens at all.
 
         Backoff jitter is drawn from a ``random.Random`` seeded with
         (``jitter_seed`` or TDR_REBUILD_SEED, rank, generation) —
         never the global ``random`` module — so a soak failure
-        replays exactly under the same ``TDR_FAULT_PLAN``. ``reason``
-        is the error that forced the rebuild.
+        replays exactly under the same ``TDR_FAULT_PLAN``.
 
-        **Black-box postmortem**: with ``TDR_POSTMORTEM_DIR`` set, every
-        rebuild first dumps this rank's flight-recorder ring, counter
-        registry, last error (``reason``) and schedule digest to
-        ``<dir>/<world>/incident-g<generation>/rank<rank>.json``, keyed
-        by the FAILED incarnation's generation, so all ranks of one
-        incident land in one directory."""
+        **Black-box postmortem**: with ``TDR_POSTMORTEM_DIR`` set,
+        every rebuild first dumps this rank's flight-recorder ring,
+        counter registry, last error (``reason``), and schedule digest
+        to ``<dir>/<world>/incident-g<generation>/rank<rank>.json`` —
+        keyed by the FAILED incarnation's generation, so all ranks of
+        one incident land in one directory and
+        ``tools/tdr_explain.py --postmortem`` merges them."""
         timeout = int(self.timeout_ms if timeout_ms is None else timeout_ms)
         note_fault_injections()
         note_integrity()
-        # Before teardown: the recorder's recent past still belongs to
-        # the failed incarnation.
+        # Black-box postmortem BEFORE teardown: the flight recorder's
+        # recent past — the incident's evidence — is dumped while it
+        # still belongs to the failed incarnation (teardown appends
+        # flush noise and the next incarnation overwrites the ring).
         self._write_postmortem(reason)
         self._teardown()
-        self.generation += 1
+        arbitrated = self.controller is not None
+        if arbitrated:
+            self._ctl_report_failure()
+        else:
+            self.generation += 1
         trace.event("world.rebuild", rank=self.rank, phase="begin",
-                    generation=self.generation)
+                    generation=self.generation,
+                    arbitrated=int(arbitrated))
         # Deterministic per-(seed, rank, generation) jitter:
         # desynchronizes ranks' retry storms without making fault-plan
         # replays flaky (string seeding is stable across processes —
@@ -1496,6 +1824,11 @@ class RingWorld:
                 note_integrity()
                 trace.event("world.rebuild", rank=self.rank, phase="ok",
                             generation=self.generation, attempts=attempt)
+                if arbitrated:
+                    trace.event("ctl.rebuild", rank=self.rank,
+                                world_name=self.world_name,
+                                generation=self.generation,
+                                epoch=self._ctl_epoch, attempts=attempt)
                 return self
             except (TransportError, TimeoutError, OSError) as e:
                 last = e
@@ -1514,14 +1847,15 @@ class RingWorld:
             retryable=False)
 
     def _write_postmortem(self, reason: str = "") -> None:
-        """Dump the black-box bundle of a dying incarnation: best effort
-        end to end (diagnostics never take the recovery ladder down),
-        and a no-op without TDR_POSTMORTEM_DIR. The ring drain is
-        destructive; counters are cumulative. Ranks that share a
-        process share one native ring, so their bundles interleave
-        each other's events. Without a coordinator the incarnation is
-        None and the clock offset 0, as on the JAX package's legacy
-        path."""
+        """Dump the black-box bundle for a dying incarnation. Best
+        effort end to end — diagnostics must never take the recovery
+        ladder down — and a no-op without TDR_POSTMORTEM_DIR. The ring
+        drain is destructive (flight-recorder semantics: the incident
+        owns the recent past); counters/histograms are cumulative and
+        unaffected. In-process multi-rank harnesses share one native
+        ring, so bundles there interleave every co-located rank's
+        events — one process per rank (the production shape) gives
+        clean per-rank bundles."""
         pm_dir = os.environ.get("TDR_POSTMORTEM_DIR")
         if not pm_dir:
             return
@@ -1530,12 +1864,13 @@ class RingWorld:
             from rocnrdma_tpu_torch.transport.engine import telemetry_dropped
 
             events = tel.timeline() if tel.enabled() else []
+            hb = self._hb
             bundle = {
                 "format": "tdr-postmortem-v1",
                 "world": self.world_name,
                 "rank": self.rank,
                 "generation": self.generation,
-                "incarnation": None,
+                "incarnation": self._ctl_inc,
                 "error": str(reason)[:400],
                 "wall_time": time.time(),
                 "monotonic_ns": time.monotonic_ns(),
@@ -1545,7 +1880,8 @@ class RingWorld:
                 "counters": {k: int(v)
                              for k, v in tel.counters().items()},
                 "dropped": int(telemetry_dropped()),
-                "clock_offset_ns": 0,
+                "clock_offset_ns": (hb.clock.offset_ns
+                                    if hb is not None else 0),
                 "events": tel.events_to_wire(events),
             }
             d = os.path.join(pm_dir, self.world_name,
@@ -1563,7 +1899,40 @@ class RingWorld:
         except Exception:
             pass
 
+    def _ctl_report_failure(self) -> None:
+        """Tell the coordinator this incarnation failed. Best-effort:
+        if the coordinator is briefly unreachable, the rendezvous in
+        the next bootstrap attempt still adopts whatever view it
+        releases (a peer's report, or a lease expiry, moves the
+        generation without us)."""
+        from rocnrdma_tpu_torch.control.client import ControlError
+
+        try:
+            resp = self.controller.report(
+                self.world_name, self.rank, self._ctl_inc or 0,
+                self.generation, error="retryable transport failure")
+            trace.event("ctl.report", rank=self.rank,
+                        world_name=self.world_name,
+                        generation=int(resp.get("generation",
+                                                self.generation)))
+        except ControlError:
+            trace.event("ctl.report_unreachable", rank=self.rank,
+                        world_name=self.world_name)
+
     def close(self) -> None:
+        if self._hb is not None:
+            hb, self._hb = self._hb, None
+            try:
+                hb.stop(flush=True)
+            except Exception:
+                pass
+        if self.controller is not None and self._ctl_inc is not None:
+            try:
+                self.controller.leave(self.world_name, self.rank,
+                                      self._ctl_inc)
+            except Exception:
+                pass
+            self._ctl_inc = None
         self._teardown()
         for mr in (self._dg_smr, self._dg_rmr):
             if mr is not None:
@@ -1588,7 +1957,7 @@ def local_worlds(n: int, base_port: Optional[int] = None,
     one thread per rank during bootstrap) — the test/bench topology.
     ``engines`` reuses caller-owned engines (concurrent-world tests
     share one engine set across several named worlds); ``kwargs``
-    forward to RingWorld (world_name=, channels=, ...)."""
+    forward to RingWorld (controller=, world_name=, channels=, ...)."""
     engines = engines if engines is not None else \
         [Engine(spec) for _ in range(n)]
     out: List[Optional[RingWorld]] = [None] * n

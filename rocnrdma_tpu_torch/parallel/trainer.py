@@ -35,18 +35,27 @@ per top-level key of the flax-shaped tree, sorted (``embed``,
 ``lm_head``), each listing its leaves' (numel, dtype) in tree order:
 the JAX trainer's plan for the same model.
 
+With ``elastic`` (an :class:`ElasticPolicy`) a step survives a peer's
+death as the JAX trainer's does: a retryable ``TransportError`` rebuilds
+the sync's world, restores the last checkpoint
+(:mod:`~rocnrdma_tpu_torch.parallel.checkpoint`) and re-runs the step;
+gradients that come back from the sync non-finite are retried once in
+place before that ladder engages; every ``save_every`` steps the
+trainer checkpoints.
+
 What else the JAX trainer does across devices and hosts is not ported
 yet, and asking for it raises ``NotImplementedError`` naming the
-ROADMAP item that ports it: ``elastic`` (Queue 1 item 2b, entry 5),
-``seq_parallel`` (item 3) and any mesh of more than one device (item 5).
+ROADMAP item that ports it: ``seq_parallel`` (item 3) and any mesh of
+more than one device (item 5).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 
@@ -54,16 +63,53 @@ from .. import DeviceLike, resolve_device
 from ..collectives.torch_shim import tree_flatten
 from ..models.llama import (CONFIGS, Llama, LlamaConfig, _flax_path,
                             cross_entropy_loss, init_params)
-from ..transport.engine import dtype_name
+from ..transport.engine import TransportError, dtype_name
 from ..utils.trace import trace
+from .checkpoint import checkpoint_file, restore_checkpoint, save_checkpoint
 
-__all__ = ["loss_fn", "Trainer"]
+__all__ = ["loss_fn", "ElasticPolicy", "Trainer"]
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token cross entropy on (B, S) token ids."""
     logits = model(tokens[:, :-1])
     return cross_entropy_loss(logits, tokens[:, 1:])
+
+
+@dataclasses.dataclass
+class ElasticPolicy:
+    """Opt-in auto-resume for transient transport failures (the JAX
+    trainer's ``ElasticPolicy``, same fields and defaults).
+
+    When a ``step()`` raises a RETRYABLE ``TransportError`` (peer death,
+    connection drop, stall), the trainer rebuilds the sync's world
+    (``RingWorld.rebuild``: re-rendezvous under a new generation),
+    restores params, optimizer state and step from the last checkpoint,
+    and re-runs the step, so a SIGKILLed-and-restarted rank rejoins and
+    training converges to the same params as an uninterrupted run.
+    Fatal errors re-raise unchanged.
+
+    ``checkpoint_path``: where this rank saves and restores its state
+    (one path per rank). ``save_every``: checkpoint cadence in steps;
+    with 1 the failed step re-runs exactly in place, with more a
+    mid-interval failure restores an older step and ``step()`` raises
+    (it cannot replay the caller's batches). ``max_resumes``: resume
+    budget per step. ``rebuild``: kwargs for ``RingWorld.rebuild``.
+    ``quarantine_nonfinite``: synced gradients that are non-finite are
+    retried once in place (apply never ran) before the elastic ladder
+    engages."""
+
+    checkpoint_path: str
+    save_every: int = 1
+    max_resumes: int = 4
+    rebuild: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    quarantine_nonfinite: bool = True
+
+
+class _NonFiniteGrads(RuntimeError):
+    """Internal: the synced gradients are non-finite (NaN/inf). Raised
+    before the update so ``step()`` can run the quarantine retry before
+    the elastic ladder engages."""
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -80,18 +126,17 @@ class Trainer:
     ``dtype=torch.float32``). The weights are ``params`` (a state dict,
     e.g. from :func:`~rocnrdma_tpu_torch.models.llama.params_from_flax`)
     or else :func:`~rocnrdma_tpu_torch.models.llama.init_params` at
-    ``seed``. ``mesh_shape`` may only describe one device."""
+    ``seed``. ``mesh_shape`` may only describe one device. ``elastic``
+    is an :class:`ElasticPolicy`."""
 
     def __init__(self, config: Union[LlamaConfig, str],
                  mesh_shape: Optional[Dict[str, int]] = None,
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
                  cross_slice_sync=None, seed: int = 0, seq_parallel=None,
-                 elastic=None, device: DeviceLike = "cuda",
+                 elastic: Optional[ElasticPolicy] = None,
+                 device: DeviceLike = "cuda",
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  **model_overrides) -> None:
-        if elastic is not None:
-            raise _not_ported("elastic (ElasticPolicy resume)",
-                              "item 2b, entry 5")
         if seq_parallel is not None:
             raise _not_ported("seq_parallel (ring attention / Ulysses)",
                               "item 3")
@@ -118,10 +163,12 @@ class Trainer:
             self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
             eps=1e-8, weight_decay=weight_decay)
         self.global_step = 0
+        self.elastic = elastic
         self.cross_slice_sync = cross_slice_sync
         self._stamp_sync = cross_slice_sync is not None
-        # Host ms of the last synced step's phases (grads, sync, apply),
-        # each ending with the card idle.
+        # Host ms of the last step's phases (grads, sync, the finite
+        # check, apply; a resume's rebuild and restore; the checkpoint
+        # save), each ending with the card idle.
         self.last_split: Dict[str, float] = {}
         self._per_layer = bool(getattr(cross_slice_sync, "per_layer", False)
                                and hasattr(cross_slice_sync,
@@ -222,26 +269,149 @@ class Trainer:
                 tree = sync(self.grads_tree())
             self._set_grads(tree)
             t0 = self._mark("sync_ms", t0)
+        # Quarantine check BEFORE apply: gradients the sync returned
+        # non-finite would poison the params; while the pre-step state
+        # is intact, step() retries once in place, then escalates.
+        if self.elastic is not None and self.elastic.quarantine_nonfinite:
+            finite = self._grads_finite()
+            t0 = self._mark("finite_ms", t0)
+            if not finite:
+                raise _NonFiniteGrads(
+                    f"all-reduced gradients contain non-finite values "
+                    f"at step {step_no}")
         with trace.span("trainer.apply", step=step_no):
             self.opt.step()
             self._mark("apply_ms", t0)
         return loss
 
+    def _grads_finite(self) -> bool:
+        """Whether every gradient is finite: the largest magnitude of
+        each gradient (NaN where one holds a NaN) by one multi-tensor
+        reduction per device and dtype, reduced on the device to one
+        flag per device, and those flags to the host. No gradient is
+        copied."""
+        groups: Dict[tuple, list] = {}
+        for p in self.model.parameters():
+            if p.grad is not None:
+                groups.setdefault((p.grad.device, p.grad.dtype),
+                                  []).append(p.grad)
+        by_device: Dict[torch.device, list] = {}
+        for (device, _dtype), gs in groups.items():
+            by_device.setdefault(device, []).extend(
+                torch._foreach_norm(gs, float("inf")))
+        flags = [torch.stack(norms).isfinite().all().cpu()
+                 for norms in by_device.values()]
+        return bool(torch.stack(flags).all()) if flags else True
+
+    def _resume(self, exc: BaseException, attempt: int) -> None:
+        """The detect→recover bridge: rebuild the sync's world under a
+        new generation, drop the sync's ring-bound caches, and restore
+        the last checkpoint so the failed step re-runs from a consistent
+        (params, optimizer state, step)."""
+        trace.event("trainer.resume", step=self.global_step + 1,
+                    attempt=attempt, error=str(exc)[:160])
+        # Nothing of the failed step may outlive it. A sync that failed
+        # drained its handles, and a per-layer one its posting worker,
+        # before raising; what may still run are the per-layer sync's
+        # side-stream copies into the staging tensors.
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        world = getattr(self.cross_slice_sync, "world", None)
+        if world is not None:
+            old_size = getattr(world, "world", None)
+            kw = dict(self.elastic.rebuild)
+            kw.setdefault("reason", str(exc)[:400])
+            t0 = time.perf_counter()
+            world.rebuild(**kw)
+            self.last_split["rebuild_ms"] = (time.perf_counter() - t0) * 1e3
+            new_size = getattr(world, "world", None)
+            if old_size is not None and new_size != old_size:
+                # A world RESIZE rode the rebuild: every sync scales by
+                # the current world size, but the global batch moved.
+                trace.add("trainer.resize", 1)
+                trace.event("trainer.resize",
+                            step=self.global_step + 1,
+                            old_size=old_size, new_size=new_size)
+        reset = getattr(self.cross_slice_sync, "reset_transport_cache", None)
+        if reset is not None:
+            reset()
+        entry_step = self.global_step
+        path = self.elastic.checkpoint_path
+        if os.path.exists(checkpoint_file(path)):
+            t0 = time.perf_counter()
+            restore_checkpoint(path, self)  # also sets self.global_step
+            self._mark("restore_ms", t0)
+        # else: failure before the first checkpoint — the params and
+        # optimizer state are the pre-step values (apply never ran).
+        if self.global_step != entry_step:
+            raise RuntimeError(
+                f"elastic resume restored step {self.global_step} but "
+                f"the failed step was {entry_step + 1}: the "
+                f"intervening steps were never checkpointed "
+                f"(save_every={self.elastic.save_every}); re-feed "
+                "batches from trainer.global_step (or use "
+                "save_every=1 for exact in-place replay)")
+        # The retried sync re-proves step agreement across ranks.
+        self._stamp_sync = True
+
+    def _step_once(self, tokens: torch.Tensor, step_no: int):
+        if self.cross_slice_sync is not None:
+            return self._synced_step(tokens, step_no)
+        with trace.span("trainer.fused_step", step=step_no):
+            self.opt.zero_grad(set_to_none=True)
+            loss = loss_fn(self.model, tokens)
+            loss.backward()
+            self.opt.step()
+        return loss
+
     def step(self, tokens) -> float:
         """One optimizer step on (B, S) token ids; returns the loss
-        before the update."""
+        before the update. With an ``elastic`` policy, a retryable
+        transport failure rebuilds, restores and re-runs the step (at
+        most ``max_resumes`` times), non-finite synced gradients are
+        retried once in place before that, and every ``save_every``
+        steps the trainer checkpoints."""
         tokens = torch.as_tensor(tokens, dtype=torch.long,
                                  device=self.device)
-        step_no = self.global_step + 1
-        if self.cross_slice_sync is not None:
-            loss = self._synced_step(tokens, step_no)
+        self.last_split = {}
+        if self.elastic is None:
+            loss = self._step_once(tokens, self.global_step + 1)
         else:
-            with trace.span("trainer.fused_step", step=step_no):
-                self.opt.zero_grad(set_to_none=True)
-                loss = loss_fn(self.model, tokens)
-                loss.backward()
-                self.opt.step()
-        self.global_step = step_no
+            resumes = 0
+            quarantined = False
+            while True:
+                try:
+                    loss = self._step_once(tokens, self.global_step + 1)
+                    break
+                except _NonFiniteGrads as e:
+                    if not quarantined:
+                        # First non-finite on this step: the params and
+                        # optimizer state are the pre-step values, so
+                        # the re-run recomputes and re-syncs the batch.
+                        quarantined = True
+                        trace.event("trainer.quarantine",
+                                    step=self.global_step + 1)
+                        continue
+                    if resumes >= self.elastic.max_resumes:
+                        raise TransportError(str(e), retryable=True)
+                    resumes += 1
+                    self._resume(e, resumes)
+                    quarantined = False
+                except TransportError as e:
+                    if (not getattr(e, "retryable", False)
+                            or resumes >= self.elastic.max_resumes):
+                        raise
+                    resumes += 1
+                    self._resume(e, resumes)
+                    quarantined = False
+        self.global_step += 1
         value = float(loss.detach())
-        trace.event("trainer.step", loss=value, step=step_no)
+        if (self.elastic is not None and self.elastic.save_every > 0
+                and self.global_step % self.elastic.save_every == 0):
+            t0 = time.perf_counter()
+            save_checkpoint(self.elastic.checkpoint_path, self,
+                            self.global_step)
+            self.last_split["ckpt_save_ms"] = \
+                (time.perf_counter() - t0) * 1e3
+        trace.event("trainer.step", loss=value, step=self.global_step)
         return value

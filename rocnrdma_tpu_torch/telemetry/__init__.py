@@ -34,11 +34,11 @@ from rocnrdma_tpu_torch.telemetry.recorder import (  # noqa: F401
     hist_percentiles, overlap_fraction, python_events, reset,
     ring_phase_split, snapshot, start_snapshot_writer, timeline)
 from rocnrdma_tpu_torch.telemetry.perfetto import (  # noqa: F401
-    export_trace, merge_fleet)
+    collect_and_merge, export_trace, merge_fleet)
 
 __all__ = [
-    "PHASES", "TelEvent", "counters", "disable", "drain",
-    "enable", "enabled", "events_from_wire", "events_to_wire",
+    "PHASES", "TelEvent", "collect_and_merge", "counters", "disable",
+    "drain", "enable", "enabled", "events_from_wire", "events_to_wire",
     "export_trace", "histograms", "hist_percentile", "hist_percentiles",
     "merge_fleet", "overlap_fraction", "python_events", "reset",
     "ring_phase_split", "snapshot", "start_snapshot_writer", "timeline",

@@ -1,7 +1,5 @@
 """Chrome/Perfetto trace export — the port's own copy of
-``rocnrdma_tpu/telemetry/perfetto.py``, without the coordinator pull
-(``collect_and_merge`` and its CLI wait for the port's ``control/``,
-ROADMAP.md Queue 1 item 2b).
+``rocnrdma_tpu/telemetry/perfetto.py``.
 
 Emits the Chrome Trace Event JSON format (the ``traceEvents`` array),
 which https://ui.perfetto.dev opens directly. Track mapping:
@@ -309,3 +307,87 @@ def merge_fleet(segments: Dict[Any, Dict[str, Any]],
             json.dump(doc, f, sort_keys=True, separators=(",", ":"))
     return doc
 
+
+def collect_and_merge(coordinator: str, world: str,
+                      timeout_s: float = 30.0,
+                      max_events: int = 65536) -> Dict[str, Any]:
+    """One-call fleet collection: ask the coordinator to pull bounded
+    per-rank trace segments (served by each member's heartbeat thread)
+    and return {"segments": raw per-rank segments, "trace": the merged
+    Perfetto doc, ...} — the programmatic form of the CLI below."""
+    from rocnrdma_tpu_torch.control.client import ControlClient
+
+    client = ControlClient(coordinator)
+    resp = client.collect_trace(world, timeout_s=timeout_s,
+                                max_events=max_events)
+    segments = resp.get("segments") or {}
+    if not segments:
+        raise RuntimeError(f"collect_trace failed: {resp.get('error')}")
+    # A collect timeout returns ok=False WITH whatever arrived (a dead
+    # rank whose lease hasn't expired can never push): merge the
+    # partial fleet — during an incident partial visibility beats
+    # none — and say so instead of discarding it.
+    return {
+        "world": world,
+        "generation": resp.get("generation"),
+        "world_size": resp.get("world_size"),
+        "segments": segments,
+        "partial": not resp.get("ok"),
+        "error": resp.get("error"),
+        "trace": merge_fleet(segments),
+    }
+
+
+def _main(argv=None) -> int:
+    """CLI: ``python -m rocnrdma_tpu_torch.telemetry.perfetto --collect
+    HOST:PORT --world NAME -o trace.json [--raw segments.json]`` —
+    one command, one whole-world timeline."""
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m rocnrdma_tpu_torch.telemetry.perfetto",
+        description="Collect per-rank flight-recorder segments from a "
+                    "coordinator-arbitrated world and merge them into "
+                    "one clock-aligned Perfetto trace.")
+    ap.add_argument("--collect", metavar="HOST:PORT", required=True,
+                    help="coordinator address")
+    ap.add_argument("--world", required=True, help="world name")
+    ap.add_argument("-o", "--out", default="fleet_trace.json",
+                    help="merged Perfetto trace output path")
+    ap.add_argument("--raw", default=None,
+                    help="also write the raw per-rank segments (the "
+                         "tdr_explain input) to this path")
+    ap.add_argument("--timeout", type=float, default=30.0)
+    ap.add_argument("--max-events", type=int, default=65536,
+                    help="per-rank event bound for the pull")
+    args = ap.parse_args(argv)
+    res = collect_and_merge(args.collect, args.world,
+                            timeout_s=args.timeout,
+                            max_events=args.max_events)
+    with open(args.out, "w") as f:
+        json.dump(res["trace"], f, sort_keys=True, separators=(",", ":"))
+    if args.raw:
+        with open(args.raw, "w") as f:
+            json.dump({"world": res["world"],
+                       "generation": res["generation"],
+                       "world_size": res["world_size"],
+                       "segments": res["segments"]}, f)
+    ranks = sorted(res["segments"], key=lambda k: int(k))
+    n_ev = sum(len(res["segments"][r].get("events") or [])
+               for r in ranks)
+    print(f"merged {len(ranks)} ranks ({n_ev} events) -> {args.out}")
+    if res.get("partial"):
+        missing = res.get("world_size", 0) - len(ranks)
+        print(f"WARNING: PARTIAL fleet trace ({res.get('error')}); "
+              f"{missing} rank(s) never pushed")
+    tainted = res["trace"].get("tdr_tainted_ranks")
+    if tainted:
+        print(f"WARNING: ring drops inside the window on ranks "
+              f"{sorted(tainted)} — event-derived numbers are skewed")
+    return 0
+
+
+if __name__ == "__main__":  # pragma: no cover - exercised by smokes
+    import sys
+
+    sys.exit(_main())

@@ -128,11 +128,12 @@ def test_numpy_and_tensor_ranks_agree():
 
 
 def test_unported_coordinator_and_postmortem_raise(monkeypatch, tmp_path):
-    """The coordinator path still raises, naming its ROADMAP item; the
-    postmortem writer is ported: with TDR_POSTMORTEM_DIR set a world
-    builds, and a rebuild writes each rank's bundle."""
-    with pytest.raises(NotImplementedError, match="item 2b"):
-        RingWorld(None, 0, 2, controller="127.0.0.1:1")
+    """Without a coordinator a world needs its base port (the
+    coordinator path is held in ``tests/test_torch_control.py``); the
+    postmortem writer: with TDR_POSTMORTEM_DIR set a world builds, and a
+    rebuild writes each rank's bundle."""
+    with pytest.raises(ValueError, match="without a controller"):
+        RingWorld(None, 0, 2)
     monkeypatch.setenv("TDR_POSTMORTEM_DIR", str(tmp_path))
     worlds = local_worlds(2, port_band(8), world_name="pm")
     run_ranks(worlds, lambda w, r: w.rebuild(reason=f"forced {r}"))
