@@ -69,7 +69,23 @@ the tensor-core route.
   postmortem bundle, launches per attempt equal to path (c)'s per step,
   and the checkpoint bytes, save and restore ms, detection, rebuild and
   rejoin times, the clean steps' ms against (d)'s and the finite check's
-  ms.
+  ms;
+- sequence-parallel parity: llama3-1b f32, a global sequence of 1024
+  split over two rank processes, one SGD step in each mode (ring
+  attention, Ulysses): the global loss and every synced gradient against
+  the single-device ``Trainer`` on the whole sequence, parameters equal
+  on both ranks;
+- path (g): ``examples/seq_parallel_train_torch.py`` as two rank
+  processes, llama3-1b bf16 with remat at its longest context (batch 1,
+  8192 tokens, 4096 a rank), ring then Ulysses, one warm step and 3 timed
+  on one batch: equal digests on both ranks after every step, the first
+  losses of both modes and of the single-device model within 2e-2,
+  launches and the attention's wire and staged bytes per rank per step
+  as the model and the shapes say; step ms, tokens/s, the grads / sync /
+  apply split, the attention's transport time per rank, peak memory.
+  The attention kernel phases hold K3, K4 and K5 at (g)'s shapes too:
+  the ring's full past shard (K4/K5 driven by an lse merged with another
+  shard's) and causal diagonal at S 4096, Ulysses' causal S 8192.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -121,7 +137,7 @@ from rocnrdma_tpu_torch.ops.attention import (
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                             rmsnorm_bwd_reference,
                                             rmsnorm_reference)
-from rocnrdma_tpu_torch.parallel.trainer import Trainer
+from rocnrdma_tpu_torch.parallel.trainer import Trainer, loss_fn
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
 from rocnrdma_tpu_torch.transport import engine as eng
@@ -479,7 +495,13 @@ def phase_flash() -> dict:
              flash_case(1, 4, 4, 65, 128, bf, True, 12, False, TC),
              flash_case(1, 8, 2, 1, 128, bf, False, 13, False, TC),
              # the scalar route in bf16
-             flash_case(1, 8, 4, 300, 32, bf, True, 14, False, "scalar")]
+             flash_case(1, 8, 4, 300, 32, bf, True, 14, False, "scalar"),
+             # path (g): the ring's past shard (full) and diagonal shard
+             # (causal) at a 4096-token shard, Ulysses' local attention
+             # over the whole 8192 tokens for half the heads
+             flash_case(1, 16, 8, 4096, 128, bf, False, 15, True, TC),
+             flash_case(1, 16, 8, 4096, 128, bf, True, 16, True, TC),
+             flash_case(1, 8, 4, 8192, 128, bf, True, 17, True, TC)]
     return {"cases": cases}
 
 
@@ -559,14 +581,32 @@ def flash_bwd_bounds(b, h, kvh, s, d, causal, dtype) -> dict:
     return out
 
 
+def merge_lse(out, lse, o2, l2):
+    """Two shards' partial outputs merged through their lse in f32, as
+    ring attention merges them: the global (out, lse)."""
+    m = torch.maximum(lse, l2)
+    a, b = torch.exp(lse - m), torch.exp(l2 - m)
+    return ((out.float() * a + o2.float() * b) / (a + b)).to(out.dtype), \
+        m + torch.log(a + b)
+
+
 def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
-                   need_route=None) -> dict:
+                   need_route=None, merged=False) -> dict:
+    """``merged``: out and lse are the global ones over this kv shard and
+    a second (diagonal, causal) one, as ring attention hands them to a
+    past shard's pair backward."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
     k = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
     v = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
     do = torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
     out, lse = flash_attention_lse(q, k, v, causal=causal)
+    if merged:
+        k2 = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
+        v2 = torch.randn(b, kvh, s, d, generator=g, device="cuda").to(dtype)
+        out, lse = merge_lse(out, lse,
+                             *flash_attention_lse(q, k2, v2, causal=True))
+        del k2, v2
     got = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
     want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal)
@@ -579,7 +619,8 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
             f"{what}: K5 route {dq_route}, expected {need_route}")
     rtol, atol = TOL[("flash", dtype)]
     res = {"shape": [b, h, kvh, s, d], "dtype": str(dtype).split(".")[-1],
-           "causal": causal, "dkv_route": route, "dq_route": dq_route,
+           "causal": causal, "merged_lse": merged, "dkv_route": route,
+           "dq_route": dq_route,
            "fwd_route": kernel_route("flash_fwd", d, dtype)}
     for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
         res[name + "_max_abs_err"] = max_err(gt, wt, rtol, atol,
@@ -632,7 +673,16 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 8, 2, 1, 128, bf, False, 33, False, TC),
              # K4's and K5's scalar routes in bf16
              flash_bwd_case(1, 4, 2, 130, 32, bf, True, 34, False,
-                            "scalar")]
+                            "scalar"),
+             # path (g): the ring's past-shard pair (full, driven by the
+             # global lse), its diagonal pair, Ulysses' local backward;
+             # the ring's f32 parity shape
+             flash_bwd_case(1, 16, 8, 4096, 128, bf, False, 35, True, TC,
+                            merged=True),
+             flash_bwd_case(1, 16, 8, 4096, 128, bf, True, 36, True, TC),
+             flash_bwd_case(1, 8, 4, 8192, 128, bf, True, 37, True, TC),
+             flash_bwd_case(1, 16, 8, 512, 128, f32, False, 38, False,
+                            merged=True)]
     return {"cases": cases}
 
 
@@ -1328,19 +1378,19 @@ def rank_lines(text: str) -> list:
     return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
 
 
-def run_two_slice(extra: list, steps: int, env=None) -> list:
-    """``examples/two_slice_dp_torch.py`` as two rank processes on the
-    card (``two_slice_args``); each rank's JSON lines."""
-    cmd = [sys.executable] + two_slice_args(steps) + [
-        "--port", str(free_port() + 100)] + extra
+def run_rank_procs(cmds: list, what: str, env=None,
+                   timeout: float = 480) -> list:
+    """One process per rank, ``cmds[r]`` run from the repo root; each
+    rank's JSON lines. Fails unless every rank exits 0 in ``timeout``
+    seconds; kills whatever is left."""
     with tempfile.TemporaryDirectory() as tmp:
         outs = [open(os.path.join(tmp, f"r{r}.{k}"), "w+")
-                for r in range(2) for k in ("out", "err")]
-        procs = [subprocess.Popen(cmd + ["--rank", str(r)],
-                                  stdout=outs[2 * r], stderr=outs[2 * r + 1],
+                for r in range(len(cmds)) for k in ("out", "err")]
+        procs = [subprocess.Popen(cmd, cwd=REPO, stdout=outs[2 * r],
+                                  stderr=outs[2 * r + 1],
                                   env={**os.environ, **(env or {})})
-                 for r in range(2)]
-        deadline = time.monotonic() + 480
+                 for r, cmd in enumerate(cmds)]
+        deadline = time.monotonic() + timeout
         try:
             rcs = [p.wait(timeout=max(1, deadline - time.monotonic()))
                    for p in procs]
@@ -1354,11 +1404,20 @@ def run_two_slice(extra: list, steps: int, env=None) -> list:
             f.seek(0)
             texts.append(f.read())
             f.close()
-    for r in range(2):
+    for r in range(len(cmds)):
         require(rcs[r] == 0,
-                f"two-slice {extra} rank {r} exited {rcs[r]} (compute mode "
+                f"{what} rank {r} exited {rcs[r]} (compute mode "
                 f"{compute_mode()}): {texts[2 * r + 1][-2000:]}")
-    return [rank_lines(texts[2 * r]) for r in range(2)]
+    return [rank_lines(texts[2 * r]) for r in range(len(cmds))]
+
+
+def run_two_slice(extra: list, steps: int, env=None) -> list:
+    """``examples/two_slice_dp_torch.py`` as two rank processes on the
+    card (``two_slice_args``); each rank's JSON lines."""
+    cmd = [sys.executable] + two_slice_args(steps) + [
+        "--port", str(free_port() + 100)] + extra
+    return run_rank_procs([cmd + ["--rank", str(r)] for r in range(2)],
+                          f"two-slice {extra}", env)
 
 
 def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
@@ -1493,13 +1552,18 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     return res
 
 
-# Rank 1 of path (f): the example behind a sync that SIGKILLs its process
-# at the given call, after writing the moment to its standard output.
+# Path (f)'s ranks: the example behind a sync that SIGKILLs its process
+# at the given call (0: never), after writing the moment to its standard
+# output, and that first sleeps LATE_S seconds in call LATE_AT (0:
+# never). SIGUSR1 dumps every thread's stack to its standard error.
 KILL_SWITCH = r"""
-import json, os, runpy, signal, sys, time
+import faulthandler, json, os, runpy, signal, sys, time
 from rocnrdma_tpu_torch.collectives import torch_shim
 
-DIE_AT = int(sys.argv[1])
+faulthandler.register(signal.SIGUSR1, all_threads=True)
+
+DIE_AT, LATE_AT, LATE_S = int(sys.argv[1]), int(sys.argv[2]), float(
+    sys.argv[3])
 
 
 class KillSwitch(torch_shim.CrossSliceAllReduce):
@@ -1507,6 +1571,8 @@ class KillSwitch(torch_shim.CrossSliceAllReduce):
 
     def __call__(self, tree):
         KillSwitch.calls += 1
+        if KillSwitch.calls == LATE_AT:
+            time.sleep(LATE_S)
         if KillSwitch.calls == DIE_AT:
             print(json.dumps({"killed_monotonic": time.monotonic()}),
                   flush=True)
@@ -1515,10 +1581,11 @@ class KillSwitch(torch_shim.CrossSliceAllReduce):
 
 
 torch_shim.CrossSliceAllReduce = KillSwitch
-sys.argv = sys.argv[2:]
+sys.argv = sys.argv[4:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
 ELASTIC_STEPS, ELASTIC_DIE_AT = 4, 3
+ELASTIC_RECOVERY_S = 450   # rank 1's restart to both ranks' exit
 ELASTIC_WORLD = "two-slice-dp"
 
 
@@ -1558,56 +1625,80 @@ def stop(proc) -> None:
             proc.wait()
 
 
-def run_elastic(addr: str, root: str) -> tuple:
+def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
     """Path (f)'s ranks: rank 0 and rank 1 (behind ``KILL_SWITCH``);
-    once rank 1 is dead (it must die of SIGKILL), rank 1 again. Each
-    incarnation's standard output, and the monotonic moments rank 1 was
-    seen dead and started again."""
+    once rank 1 is dead (it must die of SIGKILL), rank 1 again. With
+    ``late_s``, rank 0 enters the sync call rank 1 dies in that many
+    seconds late. Each incarnation's standard output, and the monotonic
+    moments rank 1 was seen dead and started again."""
     args = two_slice_args(ELASTIC_STEPS) + [
         "--controller", addr, "--elastic-dir", os.path.join(root, "ck")]
     env = {**os.environ, "TDR_RING_TIMEOUT_MS": "120000",
            "TDR_POSTMORTEM_DIR": os.path.join(root, "postmortem")}
     files = []
 
-    def spawn(rank: int, die_at: int):
+    def spawn(rank: int, die_at: int, late: float = 0.0):
         out, err = (open(os.path.join(root, f"r{rank}.{len(files)}.{k}"),
                          "w+") for k in ("out", "err"))
         files.append((out, err))
         return subprocess.Popen(
-            [sys.executable, "-c", KILL_SWITCH, str(die_at)] + args
+            [sys.executable, "-c", KILL_SWITCH, str(die_at),
+             str(ELASTIC_DIE_AT if late else 0), str(late)] + args
             + ["--rank", str(rank)], cwd=REPO, stdout=out, stderr=err,
             env=env)
 
-    procs = [spawn(0, 0), spawn(1, ELASTIC_DIE_AT)]
-    deadline = time.monotonic() + 600
+    def texts():
+        got = []
+        for out, err in files:
+            out.seek(0)
+            err.seek(0)
+            got.append((out.read(), err.read()))
+        return got
+
+    def report(what: str) -> str:
+        # Every incarnation's last lines, each live one's stacks among
+        # them: which rank a hang held, and where.
+        return what + "".join(
+            f"\n--- {name} stdout ---\n{o[-1500:]}\n--- {name} stderr "
+            f"---\n{e[-6000:]}" for name, (o, e) in zip(
+                ("rank 0", "rank 1", "restarted rank 1"), texts()))
+
+    procs = [spawn(0, 0, late_s), spawn(1, ELASTIC_DIE_AT)]
+    waited = "300 s for rank 1's kill"
     try:
         procs[1].wait(timeout=300)
         dead = time.monotonic()
         if procs[1].returncode != -signal.SIGKILL:
-            files[1][1].seek(0)
-            raise RuntimeError(f"path (f) rank 1 exited "
-                               f"{procs[1].returncode}, not by SIGKILL: "
-                               f"{files[1][1].read()[-3000:]}")
+            raise RuntimeError(report(f"path (f) rank 1 exited "
+                                      f"{procs[1].returncode}, not by "
+                                      f"SIGKILL"))
         procs.append(spawn(1, 0))
         started = time.monotonic()
+        deadline = started + ELASTIC_RECOVERY_S
+        waited = f"{ELASTIC_RECOVERY_S} s after rank 1's restart"
         rcs = [p.wait(timeout=max(1, deadline - time.monotonic()))
                for p in (procs[0], procs[2])]
+    except subprocess.TimeoutExpired:
+        live = [p for p in procs if p.poll() is None]
+        for p in live:
+            p.send_signal(signal.SIGUSR1)
+        time.sleep(2)
+        raise RuntimeError(report(
+            f"path (f): {len(live)} rank process(es) still running "
+            f"{waited} (stacks below)")) from None
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    texts = []
-    for out, err in files:
-        out.seek(0)
-        err.seek(0)
-        texts.append((out.read(), err.read()))
-        out.close()
-        err.close()
-    for name, rc, (_, err) in (("rank 0", rcs[0], texts[0]),
-                               ("restarted rank 1", rcs[1], texts[2])):
+        got = texts()
+        for out, err in files:
+            out.close()
+            err.close()
+    for name, rc, (_, err) in (("rank 0", rcs[0], got[0]),
+                               ("restarted rank 1", rcs[1], got[2])):
         require(rc == 0, f"path (f) {name} exited {rc}: {err[-3000:]}")
-    return [t[0] for t in texts], dead, started
+    return [t[0] for t in got], dead, started
 
 
 def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
@@ -1818,6 +1909,276 @@ def phase_ring_bus_by_size() -> dict:
     return res
 
 
+# Sequence parallelism at llama3-1b's longest context: the global
+# sequence, its shards over world 2, and the rank processes' steps.
+SP_WORLD, SP_BATCH, SP_SEQ, SP_STEPS = 2, 1, 8192, 4
+SP_MODES = ("ring", "ulysses")
+# The parity phase: llama3-1b f32, one SGD step on 1024 tokens.
+SP_PARITY_SEQ, SP_PARITY_LR = 1024, 1e-2
+SP_LOSS_TOL = 2e-2
+
+# One rank of the seq-parallel parity phase: the single-device Trainer's
+# loss and gradients on the whole sequence (before the world, so both
+# ranks reach its bootstrap together), then one world and a
+# SeqParallelTrainer per mode, one SGD step each from the same weights,
+# its synced gradients held against the single-device ones.
+SP_PARITY_RANK = r"""
+import dataclasses, hashlib, json, sys
+import numpy as np, torch
+from rocnrdma_tpu_torch.collectives.world import RingWorld
+from rocnrdma_tpu_torch.models import llama
+from rocnrdma_tpu_torch.parallel.trainer import Trainer, loss_fn
+from rocnrdma_tpu_torch.transport.engine import Engine
+
+rank, port, seq, lr = (int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3]),
+                       float(sys.argv[4]))
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.set_device(0)
+cfg = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
+state = llama.init_params(cfg, seed=1, device="cuda")
+tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, seq + 1))
+single = Trainer(cfg, device="cuda", params=state)
+loss = loss_fn(single.model, torch.from_numpy(tokens).cuda())
+loss.backward()
+ref_loss = float(loss.detach())
+ref = {n: p.grad for n, p in single.model.named_parameters()}
+del single, loss
+world = RingWorld(Engine("emu"), rank, 2, port, timeout_ms=120000)
+s_local = seq // 2
+shard = slice(rank * s_local, (rank + 1) * s_local)
+out = {"rank": rank}
+for mode in ("ring", "ulysses"):
+    tr = Trainer(cfg, seq_parallel=world, sp_mode=mode, device="cuda",
+                 params=state,
+                 optimizer=lambda ps: torch.optim.SGD(ps, lr=lr))
+    gloss = tr.step(tokens[:, :-1][:, shard], tokens[:, 1:][:, shard])
+    h = hashlib.sha256()
+    for _, p in tr.model.named_parameters():
+        h.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
+    rels = {n: float((p.grad - ref[n]).abs().max()
+                     / ref[n].abs().max().clamp_min(1e-30))
+            for n, p in tr.model.named_parameters()}
+    worst = max(rels, key=rels.get)
+    res = {"loss": gloss, "digest": h.hexdigest(), "ref_loss": ref_loss,
+           "grad_max_rel_err": rels[worst], "worst_grad": worst}
+    out[mode] = res
+    tr.close()
+    del tr
+    torch.cuda.empty_cache()
+world.close()
+print(json.dumps(out), flush=True)
+"""
+
+
+def phase_sp_parity() -> dict:
+    """llama3-1b in f32, batch 1, a global sequence of 1024 split over
+    two rank processes, one SGD step in each mode: the global loss and
+    every synced gradient against the single-device ``Trainer`` on the
+    whole sequence (kernels on both sides) to the training-parity
+    tolerances (loss 1e-4 relative, gradients 1e-3 of each tensor's
+    largest element), and both ranks' parameters equal after the step.
+    The ranks are processes, not threads of this process: autograd runs
+    every CUDA backward of a process on one device thread, where one
+    rank's ring backward would wait for the other's, queued behind it."""
+    port = free_port() + 100
+    ranks = run_rank_procs(
+        [[sys.executable, "-c", SP_PARITY_RANK, str(r), str(port),
+          str(SP_PARITY_SEQ), str(SP_PARITY_LR)] for r in range(2)],
+        "seq-parallel parity", timeout=420)
+    res = [lines[-1] for lines in ranks]
+    out = {"config": "llama3-1b/f32", "batch": 1, "seq": SP_PARITY_SEQ,
+           "world": 2, "optimizer": f"SGD lr {SP_PARITY_LR}",
+           "loss_rel_tol": TRAIN_LOSS_TOL, "grad_tol": TRAIN_GRAD_TOL}
+    for mode in SP_MODES:
+        a, b = res[0][mode], res[1][mode]
+        require(a["digest"] == b["digest"],
+                f"sp parity {mode}: ranks' parameters differ after the step")
+        require(a["loss"] == b["loss"], f"sp parity {mode}: ranks' losses "
+                f"{a['loss']} and {b['loss']} differ")
+        rel = abs(a["loss"] - a["ref_loss"]) / abs(a["ref_loss"])
+        require(rel <= TRAIN_LOSS_TOL, f"sp parity {mode}: loss {a['loss']} "
+                f"vs single-device {a['ref_loss']}")
+        for r in range(2):
+            got = res[r][mode]
+            require(got["grad_max_rel_err"] <= TRAIN_GRAD_TOL,
+                    f"sp parity {mode} rank {r}: grad {got['worst_grad']} "
+                    f"rel err {got['grad_max_rel_err']}")
+        out[mode] = {"loss": a["loss"], "single_device_loss": a["ref_loss"],
+                     "loss_rel_err": rel,
+                     "grad_max_rel_err_by_rank": [
+                         res[r][mode]["grad_max_rel_err"] for r in range(2)],
+                     "worst_grad": a["worst_grad"], "digest": a["digest"],
+                     "digests_equal": True}
+    return out
+
+
+def seq_parallel_args(mode: str) -> list:
+    """``examples/seq_parallel_train_torch.py``'s arguments for path (g):
+    llama3-1b bf16 with remat, batch 1, a global sequence of 8192, one
+    batch, the emu engine."""
+    return [str(REPO / "examples" / "seq_parallel_train_torch.py"),
+            "--world", str(SP_WORLD), "--engine", "emu", "--config",
+            llama.LLAMA3_1B.name, "--remat", "--one-batch", "--batch",
+            str(SP_BATCH), "--seq", str(SP_SEQ), "--steps", str(SP_STEPS),
+            "--mode", mode]
+
+
+def expected_sp_launches(cfg, mode: str, rank: int) -> dict:
+    """Launches of each kernel per rank per step on path (g): every
+    RMSNorm runs K1 forward and K2 backward, and under remat the two
+    halves' norms K1 once more (the final norm is not recomputed); the
+    ring's rank r attends r + 1 of the contiguous shards causally,
+    forward (K3) and backward (K5, K4); Ulysses runs K3 forward and
+    again in its backward's recompute, then K5 and K4."""
+    L = cfg.n_layers
+    norms = 2 * L + 1
+    shards = rank + 1 if mode == "ring" else 1
+    return {"rmsnorm_fwd": norms + (2 * L if cfg.remat else 0),
+            "flash_fwd": L * shards * (1 if mode == "ring" else 2),
+            "rmsnorm_bwd": norms, "flash_bwd_dq": L * shards,
+            "flash_bwd_dkv": L * shards}
+
+
+def sp_bytes(cfg, mode: str, rank: int, world: int, b: int,
+             s_local: int) -> tuple:
+    """(bytes this rank sends, bytes it stages) per step on path (g),
+    from the shapes. Ring, per layer: one K+V rotation forward, one K+V
+    and ``world`` f32 dK+dV rotations backward; staged, the D2H of its
+    K+V each pass, the H2D of each visible remote shard, each visible
+    pair's f32 partials and the homecoming. Ulysses, per layer: q, k, v,
+    out forward and q, k, v, dout, dq, dk, dv backward through the
+    all-to-all, (world-1)/2 of each sent, each staged both ways. Plus the
+    gradient mean's staging both ways."""
+    elt = torch.empty((), dtype=cfg.dtype).element_size()
+    q = b * cfg.n_heads * s_local * cfg.head_dim * elt
+    kv = 2 * b * cfg.n_kv_heads * s_local * cfg.head_dim * elt
+    acc = kv // elt * 4
+    if mode == "ring":
+        seen = rank + 1
+        wire = (world - 1) * 2 * kv + world * acc
+        staged = 2 * kv * seen + acc * (seen + 1)
+    else:
+        bufs = 5 * q + 3 * kv
+        wire = bufs * (world - 1) // 2
+        staged = 2 * bufs
+    L = cfg.n_layers
+    return L * wire, L * staged + 2 * grad_bytes(cfg)
+
+
+def sp_reference_loss(cfg, b: int, s: int) -> float:
+    """The single-device bf16 loss of path (g)'s first step: the
+    ``Trainer``'s model from ``init_params(seed=0)`` on the example's
+    global batch (``default_rng(1234)``), the whole sequence at once."""
+    trainer = Trainer(cfg, device="cuda")
+    tokens = torch.from_numpy(np.random.default_rng(1234).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    with torch.no_grad():
+        loss = float(loss_fn(trainer.model, tokens))
+    del trainer
+    torch.cuda.empty_cache()
+    return loss
+
+
+def sp_mode_summary(ranks: list, mode: str, cfg) -> dict:
+    """Path (g)'s gates for one mode and its mean numbers over the
+    timed steps (2..)."""
+    what = f"path (g) {mode}"
+    s_local = SP_SEQ // SP_WORLD
+    per = [{ln["step"]: ln for ln in lines if "step" in ln}
+           for lines in ranks]
+    require(all(sorted(p) == list(range(SP_STEPS + 1)) for p in per),
+            f"{what}: a rank did not report every step")
+    for k in range(SP_STEPS + 1):
+        require(per[0][k]["digest"] == per[1][k]["digest"],
+                f"{what}: parameter digests differ after step {k}")
+    losses = [per[0][k]["loss"] for k in range(1, SP_STEPS + 1)]
+    require(all(np.isfinite(losses)), f"{what}: losses {losses}")
+    require(losses[-1] < losses[0], f"{what}: loss did not fall: {losses}")
+    for r in range(SP_WORLD):
+        want = expected_sp_launches(cfg, mode, r)
+        wire, staged = sp_bytes(cfg, mode, r, SP_WORLD, SP_BATCH, s_local)
+        for k in range(1, SP_STEPS + 1):
+            ln = per[r][k]
+            require(ln["loss"] == losses[k - 1],
+                    f"{what}: rank {r} step {k} loss {ln['loss']}")
+            require(ln["launches"] == want, f"{what}: rank {r} step {k} "
+                    f"launches {ln['launches']} != {want}")
+            require(ln["attn_wire_bytes"] == wire, f"{what}: rank {r} sent "
+                    f"{ln['attn_wire_bytes']} != {wire}")
+            require(ln["staged_bytes"] == staged, f"{what}: rank {r} staged "
+                    f"{ln['staged_bytes']} != {staged}")
+    timed = [[per[r][k] for k in range(2, SP_STEPS + 1)]
+             for r in range(SP_WORLD)]
+
+    def by_rank(key):
+        return [float(np.mean([ln[key] for ln in lines])) for lines in timed]
+
+    step_ms = float(np.mean(by_rank("step_ms")))
+    transport = ["attn_wait_ms", "attn_total_ms"] if mode == "ring" \
+        else ["attn_reshard_ms"]
+    finals = [next(ln for ln in lines if "final_digest" in ln)
+              for lines in ranks]
+    return {"mode": mode, "link_tier": per[0][0]["link_tier"],
+            "engine": per[0][0]["engine"],
+            "step_ms_by_rank": [[ln["step_ms"] for ln in lines]
+                                for lines in timed],
+            "step_ms_mean": step_ms,
+            "tokens_per_s": SP_BATCH * SP_SEQ / (step_ms / 1e3),
+            **{f"{key}_by_rank": by_rank(key) for key in (
+                "grads_ms", "sync_ms", "apply_ms", "gather_ms", "ring_ms",
+                "scatter_ms", *transport)},
+            "attn_calls_per_step": per[0][1]["attn_calls"],
+            "wire_bytes_per_step_by_rank": [per[r][1]["attn_wire_bytes"]
+                                            for r in range(SP_WORLD)],
+            "staged_bytes_per_step_by_rank": [per[r][1]["staged_bytes"]
+                                              for r in range(SP_WORLD)],
+            "peak_mem_gb_by_rank": [f["peak_mem_gb"] for f in finals],
+            "losses": losses, "digests_equal_every_step": True,
+            "launches_per_step_by_rank": [per[r][1]["launches"]
+                                          for r in range(SP_WORLD)],
+            "launches": {name: sum(per[r][k]["launches"][name]
+                                   for r in range(SP_WORLD)
+                                   for k in range(1, SP_STEPS + 1))
+                         for name in _native.KERNELS}}
+
+
+def phase_seq_parallel() -> dict:
+    """Path (g): ``examples/seq_parallel_train_torch.py`` as two rank
+    processes on the card, llama3-1b bf16 with remat at its longest
+    context (8192 tokens, a 4096-token shard a rank), ring then Ulysses;
+    one warm step and 3 timed. Gates: equal digests on both ranks after
+    every step, each mode's first loss within 2e-2 relative of the other
+    mode's and of the single-device model's on the whole sequence,
+    launches, wire and staged bytes per rank per step as the model and
+    the shapes say, losses falling."""
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True)
+    ref = sp_reference_loss(cfg, SP_BATCH, SP_SEQ)
+    out = {"config": f"{cfg.name}/bf16/remat", "world": SP_WORLD,
+           "batch": SP_BATCH, "seq": SP_SEQ, "seq_local": SP_SEQ // SP_WORLD,
+           "steps": SP_STEPS, "timed_steps": SP_STEPS - 1,
+           "single_device_loss": ref, "loss_rel_tol": SP_LOSS_TOL}
+    for mode in SP_MODES:
+        cmd = [sys.executable] + seq_parallel_args(mode) + [
+            "--port", str(free_port() + 100)]
+        ranks = run_rank_procs([cmd + ["--rank", str(r)]
+                                for r in range(SP_WORLD)],
+                               f"path (g) {mode}")
+        out[mode] = sp_mode_summary(ranks, mode, cfg)
+    first = {mode: out[mode]["losses"][0] for mode in SP_MODES}
+    for mode, loss in first.items():
+        rel = abs(loss - ref) / abs(ref)
+        require(rel <= SP_LOSS_TOL, f"path (g) {mode} first loss {loss} vs "
+                f"single-device {ref}")
+        out[mode]["first_loss_rel_err_vs_single_device"] = rel
+    rel = abs(first["ring"] - first["ulysses"]) / abs(first["ring"])
+    require(rel <= SP_LOSS_TOL, f"path (g) first losses {first}")
+    out["first_loss_rel_diff_ring_vs_ulysses"] = rel
+    out["note"] = ("both ranks time-slice one card: step and grads ms are "
+                   "not two-card numbers")
+    return out
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -1876,6 +2237,8 @@ def main() -> int:
                     train["launches_per_step"], dp)
     ela = run_phase("path_f_two_slice_elastic_llama3_1b_bf16",
                     phase_two_slice_elastic, train["launches_per_step"], dp)
+    run_phase("sp_parity_llama3_1b_f32", phase_sp_parity)
+    sp = run_phase("path_g_seq_parallel_llama3_1b_bf16", phase_seq_parallel)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
@@ -1883,11 +2246,27 @@ def main() -> int:
                 "c_train": train["launches"][name],
                 "d_two_slice_dp": dp["launches"][name],
                 "e_two_slice_dp_per_layer": dpl["launches"][name],
-                "f_two_slice_elastic": ela["launches"][name]}
+                "f_two_slice_elastic": ela["launches"][name],
+                "g_seq_parallel_ring": sp["ring"]["launches"][name],
+                "g_seq_parallel_ulysses": sp["ulysses"]["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]
     whole = "plain_ms and library_ms are of the whole attention backward"
+    keys = ("shape", "causal", "max_abs_err", "ms", "bound_ms", "bound_by",
+            "plain_ms", "library_ms")
+    g_fwd = [{key: c[key] for key in keys + ("route",)}
+             for c in fl["cases"][-3:]]
+
+    def g_bwd(kernel, errs):
+        """The timed path (g) cases of a backward kernel."""
+        return [{"shape": c["shape"], "causal": c["causal"],
+                 "merged_lse": c["merged_lse"],
+                 "max_abs_err": max(c[e + "_max_abs_err"] for e in errs),
+                 "ms": c[kernel + "_ms"], "bound_ms": c[kernel + "_bound_ms"],
+                 "bound_by": c[kernel + "_bound_by"],
+                 "plain_ms": c["plain_ms"], "library_ms": c["library_ms"]}
+                for c in fl_bwd["cases"][-4:-1]]
     kernels = [
         kernel_entry("rmsnorm_fwd", "rmsnorm.py:48", by_path, k1,
                      k1["max_abs_err"], k1["ms"], k1["bound_ms"],
@@ -1900,16 +2279,17 @@ def main() -> int:
                      k3["bound_by"], instance=k3["route"],
                      path_c={key: k3c[key] for key in (
                          "shape", "route", "max_abs_err", "ms", "bound_ms",
-                         "bound_by", "library_ms")}),
+                         "bound_by", "library_ms")}, path_g=g_fwd),
         kernel_entry("flash_bwd_dkv", "attention.py:275", by_path, k45,
                      max(k45["dk_max_abs_err"], k45["dv_max_abs_err"]),
                      k45["dkv_ms"], k45["dkv_bound_ms"],
                      k45["dkv_bound_by"], note=whole,
-                     instance=k45["dkv_route"]),
+                     instance=k45["dkv_route"],
+                     path_g=g_bwd("dkv", ("dk", "dv"))),
         kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
                      k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
                      k45["dq_bound_by"], note=whole,
-                     instance=k45["dq_route"])]
+                     instance=k45["dq_route"], path_g=g_bwd("dq", ("dq",)))]
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

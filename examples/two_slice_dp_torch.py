@@ -51,7 +51,9 @@ checkpoint exists restores it first (printing ``RESTORED <rank>
 <step>``) and trains on from that step, drawing its batches as the
 uninterrupted run did. The rebuild budget (30 attempts, each parked up
 to 60 s at the rendezvous) covers a restarted llama3-1b rank's start-up
-and restore.
+and restore; a rank's first rendezvous under ``--controller`` has the
+same budget, so a restarted rank outwaits a survivor whose failed step
+raises only at the ring's timeout.
 
 Without ``--rank`` the script starts one subprocess per rank (CUDA
 cannot be forked once initialised) and exits non-zero if any fails.
@@ -71,8 +73,8 @@ and, for each, the rebuild and restore ms and the ``time.monotonic()``
 at which the resume began; the first line carries the restored step,
 the restore ms (the file read and the host-to-device copy in it) and
 the ``time.monotonic()`` readings at which the world was up and the
-rank ready; the last line the world's generation and the trainer's
-resume and rebuild counts.
+rank ready, and the rendezvous attempts the world took; the last line
+the world's generation and the trainer's resume and rebuild counts.
 """
 
 import argparse
@@ -135,6 +137,38 @@ def sum_telemetry(lines) -> dict:
                               for k in lines[0]["ring_split_ms"]}}
 
 
+# The rebuild budget of ``--elastic-dir`` and of a rank's first
+# rendezvous under ``--controller``.
+REBUILD = dict(max_attempts=30, backoff_s=0.5, backoff_cap_s=4.0,
+               timeout_ms=60000)
+
+
+def join_world(ring_world, engine, rank: int, world: int, peers,
+               controller: str):
+    """``RingWorld(controller=...)`` within the rebuild budget, and the
+    attempts it took. A rank started again after its death joins at
+    once, but a survivor parks only once its failed step has raised and
+    its world is torn down, which can take longer than one rendezvous
+    of ``timeout_ms``: a rank that gave up then would leave the
+    survivor parked for a rank that is gone."""
+    from rocnrdma_tpu_torch.transport.engine import TransportError
+
+    delay = REBUILD["backoff_s"]
+    for attempt in range(1, REBUILD["max_attempts"] + 1):
+        try:
+            return ring_world(engine, rank, world, peers=peers,
+                              controller=controller,
+                              world_name="two-slice-dp",
+                              timeout_ms=REBUILD["timeout_ms"]), attempt
+        except TransportError as e:
+            if not e.retryable or attempt == REBUILD["max_attempts"]:
+                raise
+            print(f"rank {rank}: rendezvous attempt {attempt} failed "
+                  f"({e}); retrying", file=sys.stderr, flush=True)
+            time.sleep(delay)
+            delay = min(2 * delay, REBUILD["backoff_cap_s"])
+
+
 def run_slice(rank: int, args) -> int:
     import numpy as np
     import torch
@@ -160,12 +194,13 @@ def run_slice(rank: int, args) -> int:
         telemetry.reset()
     peers = args.peers.split(",") if args.peers else None
     if args.controller:
-        world = RingWorld(eng.Engine(args.engine), rank, args.world,
-                          peers=peers, controller=args.controller,
-                          world_name="two-slice-dp")
+        world, attempts = join_world(RingWorld, eng.Engine(args.engine),
+                                     rank, args.world, peers,
+                                     args.controller)
     else:
         world = RingWorld(eng.Engine(args.engine), rank, args.world,
                           args.port, peers=peers)
+        attempts = 1
     world_ready = time.monotonic()
     # CPU gradients are adopted and reduced in place (zero staged
     # bytes); CUDA gradients are staged through pinned host memory.
@@ -178,9 +213,7 @@ def run_slice(rank: int, args) -> int:
         os.makedirs(args.elastic_dir, exist_ok=True)
         elastic = ElasticPolicy(
             os.path.join(args.elastic_dir, f"rank{rank}"), save_every=1,
-            max_resumes=6, rebuild=dict(max_attempts=30, backoff_s=0.5,
-                                        backoff_cap_s=4.0,
-                                        timeout_ms=60000))
+            max_resumes=6, rebuild=dict(REBUILD))
     trainer = Trainer(args.config, cross_slice_sync=sync, seed=0,
                       device=device, elastic=elastic, **overrides)
     cfg = trainer.cfg
@@ -207,6 +240,7 @@ def run_slice(rank: int, args) -> int:
                  "restore_h2d_ms": restored["h2d_s"] * 1e3}
     emit({"step": start, "digest": params_digest(trainer.model), **first,
           "world_ready_monotonic": world_ready,
+          "rendezvous_attempts": attempts,
           "ready_monotonic": time.monotonic(),
           "config": cfg.name, "dtype": str(cfg.dtype).split(".")[-1],
           "remat": cfg.remat, "device": device, "engine": world.engine.name,

@@ -163,22 +163,23 @@ class Attention(nn.Module):
         b, _, s, _ = o.shape
         return o.transpose(1, 2).reshape(b, s, -1) @ self.wo
 
-    def forward(self, x: torch.Tensor, freqs: torch.Tensor,
-                cache: Optional[Dict[str, torch.Tensor]] = None,
-                pos: int = 0) -> torch.Tensor:
+    def attend(self, x: torch.Tensor, freqs: torch.Tensor,
+               cache: Optional[Dict[str, torch.Tensor]] = None,
+               pos: int = 0) -> torch.Tensor:
+        """(B, S, D) normed input → the attention output (B, H, S, hd)
+        before ``out_proj``; with ``cache``, at absolute position
+        ``pos``, writing K/V into the cache in place."""
         s = x.shape[1]
         if cache is None:
             q, k, v = self.qkv(x, freqs[:s])
-            return self.out_proj(attention(q, k, v, causal=True))
+            return attention(q, k, v, causal=True)
         q, k, v = self.qkv(x, freqs[pos:pos + s])
         cache["k"][:, :, pos:pos + s] = k.to(cache["k"].dtype)
         cache["v"][:, :, pos:pos + s] = v.to(cache["v"].dtype)
         if pos == 0:
-            o = attention(q, k, v, causal=True)
-        else:
-            o = cached_attention(q, cache["k"][:, :, :pos + s],
-                                 cache["v"][:, :, :pos + s], pos)
-        return self.out_proj(o)
+            return attention(q, k, v, causal=True)
+        return cached_attention(q, cache["k"][:, :, :pos + s],
+                                cache["v"][:, :, :pos + s], pos)
 
 
 def cached_attention(q: torch.Tensor, k_all: torch.Tensor,
@@ -216,6 +217,13 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
+    """Transformer block. Besides the fused ``forward`` it exposes the
+    attention-split halves the sequence-parallel trainer drives, as the
+    JAX ``Block`` does: :meth:`qkv` (norm, projections, rope: everything
+    before the attention contraction) and :meth:`post` (output
+    projection, residuals, MLP: everything after). ``forward`` calls
+    :meth:`post` too, so the fused and split paths share every op."""
+
     def __init__(self, cfg: LlamaConfig, device: torch.device) -> None:
         super().__init__()
         self.attn_norm = RMSNorm(cfg, device)
@@ -223,9 +231,20 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(cfg, device)
         self.mlp = MLP(cfg, device)
 
+    def qkv(self, x: torch.Tensor, freqs: torch.Tensor):
+        """Pre-attention half: roped q (B, H, S, hd) and k, v
+        (B, KVH, S, hd); ``freqs`` sliced to x's absolute positions."""
+        return self.attn.qkv(self.attn_norm(x), freqs)
+
+    def post(self, x: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+        """Post-attention half: ``o`` is the (B, H, S, hd) attention
+        output for x's positions."""
+        y = x + self.attn.out_proj(o)
+        return y + self.mlp(self.mlp_norm(y))
+
     def forward(self, x, freqs, cache=None, pos: int = 0):
-        x = x + self.attn(self.attn_norm(x), freqs, cache, pos)
-        return x + self.mlp(self.mlp_norm(x))
+        return self.post(x, self.attn.attend(self.attn_norm(x), freqs,
+                                             cache, pos))
 
 
 class Llama(nn.Module):

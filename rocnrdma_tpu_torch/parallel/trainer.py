@@ -43,10 +43,11 @@ gradients that come back from the sync non-finite are retried once in
 place before that ladder engages; every ``save_every`` steps the
 trainer checkpoints.
 
-What else the JAX trainer does across devices and hosts is not ported
-yet, and asking for it raises ``NotImplementedError`` naming the
-ROADMAP item that ports it: ``seq_parallel`` (item 3) and any mesh of
-more than one device (item 5).
+With ``seq_parallel`` (a ``RingWorld``) the constructor returns a
+:class:`~rocnrdma_tpu_torch.parallel.seq_parallel.SeqParallelTrainer`,
+as the JAX trainer's does. A mesh of more than one device is not ported
+yet, and asking for it raises ``NotImplementedError`` naming ROADMAP
+Queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -118,6 +119,55 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"Queue 1, {item})")
 
 
+def build_model(cfg: LlamaConfig, device: torch.device, seed: int,
+                params: Optional[Dict[str, torch.Tensor]]) -> Llama:
+    """A :class:`Llama` on ``device`` holding ``params`` (a state dict),
+    or else :func:`init_params` at ``seed``."""
+    model = Llama(cfg, device)
+    if params is None:
+        model.load_state_dict(init_params(cfg, seed, device), assign=True)
+    else:
+        # A plain dict drops the ``_metadata`` of a state dict: once
+        # that dict went through ``load_state_dict(..., assign=True)``
+        # its metadata says "assign", and loading it again would make
+        # these parameters share (and train) the caller's tensors.
+        model.load_state_dict(dict(params))
+    return model
+
+
+def adamw(parameters, learning_rate: float,
+          weight_decay: float) -> torch.optim.AdamW:
+    """The JAX trainer's ``optax.adamw(learning_rate,
+    weight_decay=weight_decay)``."""
+    return torch.optim.AdamW(parameters, lr=learning_rate,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
+
+
+def param_tree(model: Llama, leaf) -> Dict[str, object]:
+    """``leaf(p)`` of every parameter of ``model`` in the flax-shaped
+    tree."""
+    tree: Dict[str, object] = {}
+    for name, p in model.named_parameters():
+        path = _flax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf(p)
+    return {"params": tree}
+
+
+def set_grads(model: Llama, tree) -> None:
+    """Write a synced tree back into ``p.grad`` (in place where the sync
+    returned other tensors than it was given)."""
+    for name, p in model.named_parameters():
+        node = tree["params"]
+        for key in _flax_path(name):
+            node = node[key]
+        if node is not p.grad:
+            p.grad.copy_(torch.as_tensor(node))
+
+
 class Trainer:
     """Single-process Llama trainer on one device.
 
@@ -127,7 +177,32 @@ class Trainer:
     e.g. from :func:`~rocnrdma_tpu_torch.models.llama.params_from_flax`)
     or else :func:`~rocnrdma_tpu_torch.models.llama.init_params` at
     ``seed``. ``mesh_shape`` may only describe one device. ``elastic``
-    is an :class:`ElasticPolicy`."""
+    is an :class:`ElasticPolicy`.
+
+    ``Trainer(config, seq_parallel=world, sp_mode=...)`` returns a
+    :class:`~rocnrdma_tpu_torch.parallel.seq_parallel.SeqParallelTrainer`
+    instead: the sequence is sharded across the ring's ranks, a
+    different orchestration from this one."""
+
+    def __new__(cls, *args, **kwargs):
+        if cls is Trainer and kwargs.get("seq_parallel") is not None:
+            from .seq_parallel import SeqParallelTrainer
+
+            kw = dict(kwargs)
+            world = kw.pop("seq_parallel")
+            if len(args) > 1:
+                # A positional mesh_shape would land in the world slot.
+                raise ValueError(
+                    "mesh_shape does not apply to the seq_parallel "
+                    "trainer (one device per ring rank)")
+            for unsupported in ("mesh_shape", "devices", "cross_slice_sync",
+                                "elastic"):
+                if kw.pop(unsupported, None) is not None:
+                    raise ValueError(
+                        f"{unsupported} does not apply to the "
+                        "seq_parallel trainer (one device per ring rank)")
+            return SeqParallelTrainer(*args, world=world, **kw)
+        return super().__new__(cls)
 
     def __init__(self, config: Union[LlamaConfig, str],
                  mesh_shape: Optional[Dict[str, int]] = None,
@@ -138,8 +213,16 @@ class Trainer:
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  **model_overrides) -> None:
         if seq_parallel is not None:
-            raise _not_ported("seq_parallel (ring attention / Ulysses)",
-                              "item 3")
+            # Only a subclass gets here (__new__ dispatches the base
+            # class), where dropping the flag would train data-parallel.
+            raise ValueError(
+                "seq_parallel requires the Trainer base class (__new__ "
+                "dispatches to SeqParallelTrainer; subclasses are not "
+                "intercepted)")
+        if "sp_mode" in model_overrides:
+            raise ValueError(
+                "sp_mode selects the seq-parallel attention strategy and "
+                "requires seq_parallel=<RingWorld>")
         n_dev = 1
         for size in (mesh_shape or {}).values():
             n_dev *= int(size)
@@ -149,19 +232,9 @@ class Trainer:
         cfg = CONFIGS[config] if isinstance(config, str) else config
         self.cfg = dataclasses.replace(cfg, **model_overrides)
         self.device = resolve_device(device)
-        self.model = Llama(self.cfg, self.device)
-        if params is None:
-            self.model.load_state_dict(
-                init_params(self.cfg, seed, self.device), assign=True)
-        else:
-            # A plain dict drops the ``_metadata`` of a state dict: once
-            # that dict went through ``load_state_dict(..., assign=True)``
-            # its metadata says "assign", and loading it again would make
-            # these parameters share (and train) the caller's tensors.
-            self.model.load_state_dict(dict(params))
-        self.opt = torch.optim.AdamW(
-            self.model.parameters(), lr=learning_rate, betas=(0.9, 0.999),
-            eps=1e-8, weight_decay=weight_decay)
+        self.model = build_model(self.cfg, self.device, seed, params)
+        self.opt = adamw(self.model.parameters(), learning_rate,
+                         weight_decay)
         self.global_step = 0
         self.elastic = elastic
         self.cross_slice_sync = cross_slice_sync
@@ -188,14 +261,7 @@ class Trainer:
 
     def _param_tree(self, leaf) -> Dict[str, object]:
         """``leaf(p)`` of every parameter in the flax-shaped tree."""
-        tree: Dict[str, object] = {}
-        for name, p in self.model.named_parameters():
-            path = _flax_path(name)
-            node = tree
-            for key in path[:-1]:
-                node = node.setdefault(key, {})
-            node[path[-1]] = leaf(p)
-        return {"params": tree}
+        return param_tree(self.model, leaf)
 
     def grads_tree(self) -> Dict[str, object]:
         """The parameters' gradients as the flax-shaped tree the sync
@@ -214,16 +280,6 @@ class Trainer:
         self._left[idx] -= 1
         if self._left[idx] == 0:
             pending.push(idx, [p.grad for p in self._buckets[idx]])
-
-    def _set_grads(self, tree) -> None:
-        """Write a synced tree back into ``p.grad`` (in place where the
-        sync returned other tensors than it was given)."""
-        for name, p in self.model.named_parameters():
-            node = tree["params"]
-            for key in _flax_path(name):
-                node = node[key]
-            if node is not p.grad:
-                p.grad.copy_(torch.as_tensor(node))
 
     def _mark(self, phase: str, t0: float) -> float:
         if self.device.type == "cuda":
@@ -267,7 +323,7 @@ class Trainer:
                 tree = pending.finish()
             else:
                 tree = sync(self.grads_tree())
-            self._set_grads(tree)
+            set_grads(self.model, tree)
             t0 = self._mark("sync_ms", t0)
         # Quarantine check BEFORE apply: gradients the sync returned
         # non-finite would poison the params; while the pre-step state

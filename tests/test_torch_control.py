@@ -21,7 +21,8 @@ interop with the JAX package's.
   each with ``ring_begin`` events, and merges them;
 - ``examples/two_slice_dp_torch.py --controller --elastic-dir`` trains
   under the coordinator, and a second run on the same directory
-  restores every rank's checkpoint and trains on from it.
+  restores every rank's checkpoint and trains on from it; the
+  example's first rendezvous retries until a late survivor parks.
 """
 
 import json
@@ -45,7 +46,8 @@ from rocnrdma_tpu_torch.collectives.world import RingWorld, local_worlds
 from rocnrdma_tpu_torch.control import ControlClient, Coordinator
 from rocnrdma_tpu_torch.control.coordinator import Standby
 from rocnrdma_tpu_torch.telemetry.recorder import events_from_wire
-from rocnrdma_tpu_torch.transport.engine import Engine, native_counters
+from rocnrdma_tpu_torch.transport.engine import (Engine, TransportError,
+                                                 native_counters)
 from rocnrdma_tpu_torch.utils.trace import trace
 
 from test_hier import port_band
@@ -329,6 +331,63 @@ def test_rank_auto_assignment_adopted_by_ringworld(coord):
     finally:
         for w in worlds:
             w.close()
+
+
+def _example():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "two_slice_dp_torch",
+        os.path.join(REPO, "examples", "two_slice_dp_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_example_first_rendezvous_outwaits_a_late_survivor(coord,
+                                                           monkeypatch):
+    """The example's ``join_world``: a rank that joins at once keeps
+    re-joining, each rendezvous shorter than the survivor's delay,
+    until the survivor parks; a fatal error is not retried."""
+    ex = _example()
+    monkeypatch.setattr(ex, "REBUILD", dict(
+        max_attempts=20, backoff_s=0.05, backoff_cap_s=0.1,
+        timeout_ms=1000))
+    worlds = [None, None]
+
+    def boot(_w, r):
+        if r == 0:
+            time.sleep(3.0)  # the survivor still inside its failed step
+            worlds[0] = RingWorld(Engine("emu"), 0, 2,
+                                  controller=coord.address,
+                                  world_name="two-slice-dp", channels=1,
+                                  timeout_ms=15000)
+        else:
+            worlds[1], attempts[0] = ex.join_world(
+                lambda *a, **kw: RingWorld(*a, channels=1, **kw),
+                Engine("emu"), 1, 2, None, coord.address)
+
+    attempts = [0]
+    run_ranks([None] * 2, boot)
+    try:
+        assert attempts[0] > 1
+        bufs = [torch.full((16,), r + 1, dtype=torch.int32)
+                for r in range(2)]
+        _allreduce_world2(worlds, *bufs)
+        assert all(torch.equal(b, torch.full((16,), 3, dtype=torch.int32))
+                   for b in bufs)
+    finally:
+        for w in worlds:
+            w.close()
+    calls = []
+
+    def fatal(*_a, **_kw):
+        calls.append(1)
+        raise TransportError("schedule mismatch", retryable=False)
+
+    with pytest.raises(TransportError, match="schedule mismatch"):
+        ex.join_world(fatal, None, 0, 2, None, coord.address)
+    assert len(calls) == 1
 
 
 def test_base_port_is_required_only_without_a_controller():

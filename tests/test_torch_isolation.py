@@ -24,6 +24,7 @@ import torch
 
 import rocnrdma_tpu_torch
 from rocnrdma_tpu_torch.models import llama as tllama
+from rocnrdma_tpu_torch.parallel.seq_parallel import SeqParallelTrainer
 from rocnrdma_tpu_torch.parallel.trainer import Trainer
 from rocnrdma_tpu_torch.serving import model as tmodel
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher
@@ -90,8 +91,10 @@ def _imported_roots(path: Path):
 
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(REPO)) for p in PKG.rglob("*.py")]
+    + [str(p.relative_to(REPO)) for p in (REPO / "tools").glob("torch_*.py")]
     + ["chip_smoke.py", "examples/train_single_chip_torch.py",
-       "examples/two_slice_dp_torch.py"]))
+       "examples/two_slice_dp_torch.py",
+       "examples/seq_parallel_train_torch.py"]))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
@@ -119,6 +122,7 @@ ENTRY_POINTS = {
     "Trainer": lambda: Trainer("llama-tiny"),
     "Trainer(cross_slice_sync=)": lambda: Trainer(
         "llama-tiny", cross_slice_sync=lambda grads: grads),
+    "SeqParallelTrainer": lambda: SeqParallelTrainer("llama-tiny", None),
     "ContinuousBatcher": lambda: ContinuousBatcher(
         None, tmodel.pack_pages(_serve_cfg(),
                                 tmodel.toy_param_tree(_serve_cfg())),

@@ -193,7 +193,6 @@ def test_trainer_copies_the_given_weights():
 
 @pytest.mark.parametrize("kwargs,item", [
     (dict(mesh_shape={"dp": 1, "tp": 2}), "item 5"),
-    (dict(seq_parallel=object()), "item 3"),
     (dict(mesh_shape={"dp": 2, "tp": 1}), "item 5"),
 ])
 def test_unported_options_raise(kwargs, item):
