@@ -25,6 +25,21 @@ the tensor-core route.
   streamed weight pages, four requests and a fifth that joins mid-run,
   each request's greedy tokens held against ``generate`` on the same
   weights;
+- the HF import: (b)'s weights laid out as an HF ``LlamaForCausalLM``
+  checkpoint (HF's names, projections (out, in), a config with HF's
+  field names) and brought back by ``config_from_hf`` and
+  ``from_hf_state_dict``: every tensor bitwise the original, the
+  geometry llama3-1b's, and a tied checkpoint's head the embedding's
+  transpose; the conversion seconds;
+- path (h): two rank processes, each rebuilding (b)'s weights, taking
+  them through the HF import and serving (b)'s request script on a
+  world-2 ``ContinuousBatcher`` over the emu ring (weights sharded and
+  gathered a page at a time with prefetch, each joining request's KV
+  pages broadcast from its home rank): tokens equal on both ranks and
+  to (b)'s, launches and gathered and broadcast bytes per rank as the
+  shapes say, the link tier; step ms, token latency, the host time in
+  the prefetch's window fill, the upload, the compute, the page wait
+  and the KV joins, the prefetch-overlap fraction;
 - path (c): ``Trainer("llama3-1b", remat=True)`` in bf16, all 16
   layers, batch 2, seq 2048 (the shape of
   ``examples/train_single_chip.py``), one warm step then 4 timed steps
@@ -50,6 +65,10 @@ the tensor-core route.
   2 in bf16, 4 MiB, 64 MiB and 1 GiB, as two rank processes and as two
   threads of one process, each with its link tier, and the 64 MiB case
   across processes once more with the flight recorder on;
+- the perftest: the port's ``tools/perf.py`` (``ib_write_bw`` /
+  ``ib_read_bw``'s analogue) on the emu engine, RDMA WRITE and READ from
+  4 KiB to 1 GiB, in one process and across two (the CMA link of the
+  two-process paths): GB/s by size;
 - path (d): ``examples/two_slice_dp_torch.py`` as two rank processes on
   the card, llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, the
   gradients averaged over the emu ring each step: losses, equal
@@ -62,7 +81,7 @@ the tensor-core route.
   recorder's dropped count and the ring's time split by native event;
 - path (f): path (d)'s two ranks under the port's coordinator (started
   as a process) with ``--elastic-dir`` (a checkpoint every step); rank 1
-  SIGKILLs itself in its 3rd sync call and is started again, restores
+  SIGKILLs itself in its 2nd sync call and is started again, restores
   its checkpoint and rejoins while rank 0 resumes: digests equal on
   every rank and to path (d)'s after every step, one recovery and the
   ranks' generation on the coordinator's ``/metrics``, rank 0's
@@ -102,8 +121,10 @@ f32 products on the card run in full f32.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
+import io
 import json
 import os
 import re
@@ -115,6 +136,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -129,6 +151,8 @@ from rocnrdma_tpu_torch.hbm import cuda as hcuda
 from rocnrdma_tpu_torch.hbm.registry import (HbmError, PeerClient,
                                              RegistrationManager)
 from rocnrdma_tpu_torch.models import llama
+from rocnrdma_tpu_torch.models.convert import (config_from_hf,
+                                               from_hf_state_dict)
 from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
     flash_attention_bwd_reference, flash_attention_lse,
@@ -833,16 +857,19 @@ def _compare_to_generate(model, req) -> dict:
     return {"req": req.id, "equal": False, "near_tie_at": j, "gap": gap}
 
 
-def phase_batcher(state, cfg, model) -> dict:
-    scfg = ServeConfig.from_llama(cfg)
-    pages = pack_llama_params(scfg, llama.params_to_flax(state))
+def serve_requests(cfg) -> list:
+    """The request script of paths (b) and (h): 5 requests, prompts of
+    64-256 tokens from ``default_rng(2)``, 16 new tokens each."""
     rng = np.random.default_rng(2)
-    reqs = [Request(i + 1, rng.integers(0, cfg.vocab_size,
+    return [Request(i + 1, rng.integers(0, cfg.vocab_size,
                                         int(rng.integers(64, 257))), 16)
             for i in range(5)]
-    batcher = ContinuousBatcher(None, pages, scfg, max_slots=4,
-                                device="cuda")
-    _native.reset_launches()
+
+
+def drive_requests(batcher, reqs) -> float:
+    """Four requests, two steps, then the fifth joins mid-run; runs
+    until every request finished. Returns the wall seconds, the card
+    synchronised."""
     t0 = time.perf_counter()
     for r in reqs[:4]:
         batcher.submit(r)
@@ -851,7 +878,17 @@ def phase_batcher(state, cfg, model) -> dict:
     batcher.submit(reqs[4])                           # joins mid-run
     batcher.run()
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    return time.perf_counter() - t0
+
+
+def phase_batcher(state, cfg, model) -> dict:
+    scfg = ServeConfig.from_llama(cfg)
+    pages = pack_llama_params(scfg, llama.params_to_flax(state))
+    reqs = serve_requests(cfg)
+    batcher = ContinuousBatcher(None, pages, scfg, max_slots=4,
+                                device="cuda")
+    _native.reset_launches()
+    wall = drive_requests(batcher, reqs)
     launches = _native.launches()
     batcher.close()
     want = expected_launches(cfg, forward_steps=sum(
@@ -870,7 +907,252 @@ def phase_batcher(state, cfg, model) -> dict:
             "token_lat_us_p50": float(np.percentile(lat, 50)),
             "token_lat_us_p99": float(np.percentile(lat, 99)),
             "page_bytes_per_step": pages.nbytes(),
-            "vs_generate": checks, "launches": launches}
+            "page_elems": [int(pg.size) for pg in pages.pages],
+            "vs_generate": checks, "launches": launches,
+            "tokens": {str(r.id): batcher.finished[r.id].tokens
+                       for r in reqs}}
+
+
+def hf_layout(state: dict, cfg) -> tuple:
+    """What an HF checkpoint of the port's state dict ``state`` holds:
+    ``LlamaForCausalLM``'s names with every projection and the head as
+    (out, in), on the CPU, and a config object with HF's field names."""
+    hf_cfg = types.SimpleNamespace(
+        vocab_size=cfg.vocab_size, hidden_size=cfg.d_model,
+        intermediate_size=cfg.d_ff, num_hidden_layers=cfg.n_layers,
+        num_attention_heads=cfg.n_heads, num_key_value_heads=cfg.n_kv_heads,
+        max_position_embeddings=cfg.max_seq_len, rope_theta=cfg.rope_theta,
+        rms_norm_eps=cfg.norm_eps, head_dim=cfg.head_dim,
+        tie_word_embeddings=False)
+
+    def proj(name):
+        return state[name].t().contiguous().cpu()
+
+    sd = {"model.embed_tokens.weight": state["embed"].cpu(),
+          "model.norm.weight": state["final_norm.weight"].cpu(),
+          "lm_head.weight": proj("lm_head")}
+    for i in range(cfg.n_layers):
+        hf, ours = f"model.layers.{i}", f"layers.{i}"
+        sd.update({
+            f"{hf}.input_layernorm.weight":
+                state[f"{ours}.attn_norm.weight"].cpu(),
+            f"{hf}.self_attn.q_proj.weight": proj(f"{ours}.attn.wq"),
+            f"{hf}.self_attn.k_proj.weight": proj(f"{ours}.attn.wk"),
+            f"{hf}.self_attn.v_proj.weight": proj(f"{ours}.attn.wv"),
+            f"{hf}.self_attn.o_proj.weight": proj(f"{ours}.attn.wo"),
+            f"{hf}.post_attention_layernorm.weight":
+                state[f"{ours}.mlp_norm.weight"].cpu(),
+            f"{hf}.mlp.gate_proj.weight": proj(f"{ours}.mlp.w_gate"),
+            f"{hf}.mlp.up_proj.weight": proj(f"{ours}.mlp.w_up"),
+            f"{hf}.mlp.down_proj.weight": proj(f"{ours}.mlp.w_down")})
+    return sd, hf_cfg
+
+
+def phase_hf_import(state, cfg) -> dict:
+    """(b)'s llama3-1b f32 weights in an HF checkpoint's layout, through
+    ``config_from_hf`` and ``from_hf_state_dict``: every tensor bitwise
+    the original, the geometry llama3-1b's; then the tied case (no
+    ``lm_head.weight``), whose head must be the embedding's transpose."""
+    hf_sd, hf_cfg = hf_layout(state, cfg)
+    t0 = time.perf_counter()
+    got_cfg = config_from_hf(hf_cfg, name=cfg.name, dtype=cfg.dtype)
+    got = from_hf_state_dict(got_cfg, hf_sd)
+    convert_s = time.perf_counter() - t0
+    require(dataclasses.replace(got_cfg, dtype=llama.LLAMA3_1B.dtype)
+            == llama.LLAMA3_1B, f"imported geometry {got_cfg}")
+    require(got_cfg == cfg, f"imported config {got_cfg} != {cfg}")
+    require(set(got) == set(state), "imported names "
+            f"{sorted(set(got) ^ set(state))} differ")
+    for name, want in state.items():
+        t = got[name]
+        require(t.dtype == want.dtype and t.shape == want.shape
+                and torch.equal(t, want.cpu()),
+                f"imported {name} is not bitwise the original")
+    nbytes = sum(t.numel() * t.element_size() for t in got.values())
+    del got
+    del hf_sd["lm_head.weight"]
+    t0 = time.perf_counter()
+    tied = from_hf_state_dict(got_cfg, hf_sd)
+    tied_s = time.perf_counter() - t0
+    require(torch.equal(tied["lm_head"], tied["embed"].t()),
+            "tied checkpoint: lm_head is not embed.T")
+    require(torch.equal(tied["embed"], state["embed"].cpu()),
+            "tied checkpoint: embed changed")
+    return {"config": cfg.name + "/f32", "tensors": len(state),
+            "bytes": nbytes, "convert_s": convert_s,
+            "tied_convert_s": tied_s, "bitwise_equal": True,
+            "geometry": {f.name: getattr(got_cfg, f.name)
+                         for f in dataclasses.fields(got_cfg)
+                         if f.name != "dtype"}}
+
+
+# One rank of path (h): (b)'s weights rebuilt, taken through the HF
+# import, packed into f32 pages; the kernels loaded and cuBLAS up before
+# the world, so no rank compiles while its peer waits in a gather; then
+# (b)'s request script on a world-2 ContinuousBatcher over the emu ring.
+# The bytes that crossed the ring are read from the engine's flight
+# recorder (drained again after close, when every gather has landed):
+# wire_tx sums what this rank sent, land what landed in its gather
+# windows. The host split is the package's spans: serve.upload (waits
+# for the stream's earlier kernels) and serve.prefetch (the window
+# filled from the rank's shard, the gather posted) beside the compute.
+SERVE_RANK = r"""
+import dataclasses, json, sys, time
+import numpy as np, torch
+import chip_smoke as cs
+from rocnrdma_tpu_torch import telemetry
+from rocnrdma_tpu_torch.collectives.world import RingWorld
+from rocnrdma_tpu_torch.models import llama
+from rocnrdma_tpu_torch.models.convert import (config_from_hf,
+                                               from_hf_state_dict)
+from rocnrdma_tpu_torch.ops import _native
+from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher
+from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
+from rocnrdma_tpu_torch.transport.engine import Engine, telemetry_dropped
+from rocnrdma_tpu_torch.utils.trace import trace
+
+rank, port = int(sys.argv[1]), int(sys.argv[2])
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.cuda.set_device(0)
+t0 = time.perf_counter()
+cfg1 = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
+hf_sd, hf_cfg = cs.hf_layout(llama.init_params(cfg1, seed=1, device="cuda"),
+                             cfg1)
+torch.cuda.empty_cache()
+t1 = time.perf_counter()
+cfg = config_from_hf(hf_cfg, name=cfg1.name, dtype=torch.float32)
+state = from_hf_state_dict(cfg, hf_sd)
+import_s = time.perf_counter() - t1
+del hf_sd
+scfg = ServeConfig.from_llama(cfg)
+pages = pack_llama_params(scfg, llama.params_to_flax(state))
+del state
+for name in ("rmsnorm_fwd", "flash_fwd"):
+    _native.library(name)
+x = torch.ones(64, 64, device="cuda")
+float((x @ x).sum())
+setup_s = time.perf_counter() - t0
+
+world = RingWorld(Engine("emu"), rank, 2, port, timeout_ms=120000)
+batcher = ContinuousBatcher(world, pages, scfg, max_slots=4, device="cuda")
+reqs = cs.serve_requests(cfg)
+telemetry.reset()
+trace.reset()
+_native.reset_launches()
+wall = cs.drive_requests(batcher, reqs)
+launches = _native.launches()
+events = telemetry.timeline()
+frac = telemetry.overlap_fraction(events, span="serve.compute")
+spans = {name: sum(e[2]["dur_s"] for e in trace.events(name))
+         for name in ("serve.compute", "serve.page_wait", "serve.kv_stream",
+                      "serve.request_join", "serve.upload", "serve.prefetch")}
+st = batcher.streamer.stats()
+batcher.close()
+events += telemetry.drain()
+wire = {name: sum(e.arg for e in events if e.name == name)
+        for name in ("wire_tx", "land")}
+lat = np.asarray(batcher.token_lat_us)
+out = {"rank": rank, "link_tier": world.link_tier, "setup_s": setup_s,
+       "import_s": import_s, "steps": batcher.step_no, "wall_s": wall,
+       "step_ms": wall * 1e3 / batcher.step_no,
+       "token_gaps": int(lat.size),
+       "token_lat_us_p50": float(np.percentile(lat, 50)),
+       "token_lat_us_p99": float(np.percentile(lat, 99)),
+       "tokens": {str(r.id): batcher.finished[r.id].tokens for r in reqs},
+       "launches": launches, "depth": batcher.streamer.depth,
+       "pages_fetched": st["pages"], "gather_bytes": st["bytes"],
+       "wire_tx_bytes": wire["wire_tx"], "landed_bytes": wire["land"],
+       "kv_pages": trace.counter("serve.kv_pages"),
+       "span_s": spans, "upload_s": spans["serve.upload"],
+       "prefetch_s": spans["serve.prefetch"],
+       "overlap_fraction": frac["overlap_fraction"],
+       "wire_events": frac["wire_events"],
+       "telemetry_dropped": telemetry_dropped(),
+       "pending_async": world.pending_async}
+world.close()
+print(json.dumps(out), flush=True)
+"""
+
+
+def expected_serve(cfg, sizes: list, reqs, steps: int, depth: int,
+                   rank: int) -> dict:
+    """What path (h)'s rank ``rank`` must count, from the shapes. Every
+    step gathers every page, and the stream ends ``depth - 1`` pages into
+    the next cycle. The ring at world 2 lands the peer's half of each
+    page (ceil(n/2) elements on rank 0, floor(n/2) on rank 1) and sends
+    this rank's own half. Each join broadcasts one KV page per layer,
+    2 x n_kv_heads x prompt x head_dim f32, and one meta element, as a
+    world-2 allreduce: each rank sends half on the way out and folds the
+    other half back, the whole page. The request's home rank (id % 2)
+    runs its prefill (K3 once per layer); every rank runs K1 2L+1 times
+    per forward step it computes: 16 for a request at home, 15
+    elsewhere."""
+    order = sizes * steps + sizes[:depth - 1]
+    peer = [(n + 1) // 2 if rank == 0 else n // 2 for n in order]
+    home = [r for r in reqs if r.id % 2 == rank]
+    fwd = sum(r.max_new_tokens - (0 if r.id % 2 == rank else 1)
+              for r in reqs)
+    kv = [2 * cfg.n_kv_heads * int(r.prompt.size) * cfg.head_dim
+          for r in reqs]
+    kv_bytes = 4 * sum(cfg.n_layers * n + 1 for n in kv)
+    return {"pages_fetched": len(order), "gather_bytes": 4 * sum(order),
+            "landed_bytes": 4 * sum(peer),
+            "wire_tx_bytes": 4 * (sum(order) - sum(peer)) + kv_bytes,
+            "kv_pages": len(reqs) * (cfg.n_layers + 1),
+            "launches": expected_launches(cfg, forward_steps=fwd,
+                                          prefills=len(home))}
+
+
+def phase_serve_two_slice(cfg, b: dict) -> dict:
+    """Path (h): two rank processes, each (b)'s weights through the HF
+    import, serve (b)'s request script over a world-2 emu ring with
+    prefetch. Gates: tokens equal on both ranks and to (b)'s, the same
+    number of steps, launches, gathered and broadcast bytes exactly as
+    the shapes say, the CMA link, no handle left."""
+    port = free_port() + 100
+    env = {"TDR_TELEMETRY": "1", "TDR_TELEMETRY_RING": str(1 << 21),
+           "TDR_TRACE_RING": str(1 << 18)}
+    ranks = run_rank_procs(
+        [[sys.executable, "-c", SERVE_RANK, str(r), str(port)]
+         for r in range(2)], "path (h)", env=env)
+    res = [lines[-1] for lines in ranks]
+    reqs = serve_requests(cfg)
+    for r, got in enumerate(res):
+        require(got["tokens"] == b["tokens"], f"path (h) rank {r} tokens "
+                f"{got['tokens']} != path (b)'s {b['tokens']}")
+        require(got["steps"] == b["steps"], f"path (h) rank {r} ran "
+                f"{got['steps']} steps, path (b) {b['steps']}")
+        want = expected_serve(cfg, b["page_elems"], reqs, got["steps"],
+                              got["depth"], r)
+        for key, val in want.items():
+            require(got[key] == val, f"path (h) rank {r} {key} {got[key]} "
+                    f"!= {val}")
+        require(got["link_tier"] == "cma", f"path (h) rank {r} link tier "
+                f"{got['link_tier']}")
+        require(got["pending_async"] == 0, f"path (h) rank {r} left "
+                f"{got['pending_async']} handles")
+        require(got["wire_events"] > 0, f"path (h) rank {r}: no wire "
+                "events recorded")
+        require(got["telemetry_dropped"] == 0, f"path (h) rank {r}: the "
+                f"flight recorder dropped {got['telemetry_dropped']} events")
+    keys = ("setup_s", "import_s", "steps", "wall_s", "step_ms",
+            "token_gaps", "token_lat_us_p50", "token_lat_us_p99",
+            "pages_fetched", "gather_bytes", "landed_bytes", "wire_tx_bytes",
+            "kv_pages", "span_s",
+            "upload_s", "prefetch_s", "overlap_fraction", "wire_events",
+            "telemetry_dropped",
+            "launches")
+    return {"config": cfg.name + "/f32", "world": 2, "engine": "emu",
+            "link_tier": res[0]["link_tier"], "depth": res[0]["depth"],
+            "requests": len(reqs),
+            "page_bytes_per_step": b["page_bytes_per_step"],
+            "tokens_equal_path_b": True,
+            **{f"{k}_by_rank": [got[k] for got in res] for k in keys},
+            "launches": {name: sum(got["launches"][name] for got in res)
+                         for name in _native.KERNELS},
+            "note": "both ranks time-slice one card and upload pageable "
+                    "pages: step times are not two-card numbers"}
 
 
 def model_flops(cfg, b: int, s: int) -> float:
@@ -1504,7 +1786,7 @@ def against_path_d(digests: list, losses: list, d: dict, c_per_step: dict,
     digests, the difference is a fault of ``fault``; if it does not,
     the backward is not bitwise repeatable on this card and the path's
     losses are held to (d)'s within 1e-3 relative instead."""
-    out = {"digests_equal_path_d": digests == d["digests"]}
+    out = {"digests_equal_path_d": digests == d["digests"][:len(digests)]}
     if not out["digests_equal_path_d"]:
         again, _ = two_slice_summary(run_two_slice([], 2), 2, c_per_step,
                                      "path (d) repeat")
@@ -1584,7 +1866,7 @@ torch_shim.CrossSliceAllReduce = KillSwitch
 sys.argv = sys.argv[4:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
-ELASTIC_STEPS, ELASTIC_DIE_AT = 4, 3
+ELASTIC_STEPS, ELASTIC_DIE_AT = 3, 2
 ELASTIC_RECOVERY_S = 450   # rank 1's restart to both ranks' exit
 ELASTIC_WORLD = "two-slice-dp"
 
@@ -1704,7 +1986,7 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
 def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
     """Path (f): path (d)'s two ranks under the port's coordinator, each
     with ``ElasticPolicy(save_every=1, max_resumes=6)``; rank 1
-    SIGKILLs itself in its 3rd sync call and is started again. Gates:
+    SIGKILLs itself in its 2nd sync call and is started again. Gates:
     rank 1 died of SIGKILL and came back from its checkpoint; rank 0
     resumed and rebuilt; every step's digests equal on every rank and
     equal to path (d)'s; one recovery on the coordinator and the
@@ -1783,7 +2065,7 @@ def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
             and bundle["incarnation"] is not None,
             f"path (f) rank 0 postmortem bundle: {bundles}")
     clean = [ln for lines in by_rank for ln in lines
-             if ln["step"] in (2, ELASTIC_STEPS)]
+             if ln["step"] > 1 and ln["step"] != ELASTIC_DIE_AT]
     first1 = next(ln for ln in r1b if "ready_monotonic" in ln)
     out = {"config": f"{cfg.name}/bf16/remat", "ranks": 2,
            "steps": ELASTIC_STEPS, "killed_in_sync_call": ELASTIC_DIE_AT,
@@ -1906,6 +2188,69 @@ def phase_ring_bus_by_size() -> dict:
         ["--bytes", "64M", "--dtype", "bfloat16", "--iters", "3"],
         env={"TDR_TELEMETRY": "1"})
     res["processes_64M_telemetry"] = rec["bus_GBps"]
+    return res
+
+
+# The perftest sweep: every power of two from 4 KiB to 1 GiB.
+PERF_SIZES, PERF_ITERS = "4K:1G", 8
+
+
+def perf_tool(op: str, processes: int) -> dict:
+    """The port's ``tools/perf.py`` (``ib_{write,read}_bw``'s analogue)
+    on the emu engine, ``--json``, its client in this process: both ends
+    here (``--loopback``), or against a ``--listen`` process on this host
+    (the QP then negotiates the cross-process CMA link that paths (d)-(h)
+    ride). The client's record."""
+    from rocnrdma_tpu_torch.tools import perf as tool
+
+    args = ["--engine", "emu", "--op", op, "--sizes", PERF_SIZES,
+            "--iters", str(PERF_ITERS), "--port", str(free_port() + 100)]
+    server = None
+    if processes == 2:
+        server = subprocess.Popen(
+            [sys.executable, "-m", "rocnrdma_tpu_torch.tools.perf", *args,
+             "--listen", "--bind", "127.0.0.1"], cwd=REPO,
+            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(args + (["--host", "127.0.0.1", "--json"]
+                                   if server else ["--loopback", "--json"]))
+    finally:
+        if server is not None:
+            try:
+                _, err = server.communicate(timeout=120)
+            finally:
+                if server.poll() is None:
+                    server.kill()
+                    server.wait()
+    require(rc == 0, f"perf tool ({op}, {processes} processes) exited {rc}")
+    if server is not None:
+        require(server.returncode == 0, f"perf tool server ({op}) exited "
+                f"{server.returncode}: {err[-2000:]}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_perftest() -> dict:
+    """The verb-level link: RDMA WRITE and READ, 4 KiB to 1 GiB, 8
+    operations of each size, all in flight at once (the tool keeps
+    min(``--qd`` 16, ``--iters``) outstanding), in one process and across
+    two. GB/s by size."""
+    from rocnrdma_tpu_torch.tools.perf import parse_sizes
+
+    res = {"engine": "emu", "sizes": PERF_SIZES, "iters": PERF_ITERS}
+    want = parse_sizes(PERF_SIZES)
+    for processes, mode in ((1, "loopback"), (2, "processes")):
+        for op in ("write", "read"):
+            rec = perf_tool(op, processes)
+            sweep = rec["sweep"]
+            require([r["bytes"] for r in sweep] == want,
+                    f"perftest {mode} {op}: sizes {sweep}")
+            require(all(r["GBps"] > 0 for r in sweep),
+                    f"perftest {mode} {op}: {sweep}")
+            res[f"{mode}_{op}_GBps"] = {str(r["bytes"]): r["GBps"]
+                                        for r in sweep}
+            res[f"{mode}_{op}_peak_GBps"] = rec["peak_GBps"]
     return res
 
 
@@ -2223,6 +2568,9 @@ def main() -> int:
                     state, cfg1, model1)
     del model1
     torch.cuda.empty_cache()
+    run_phase("hf_import_llama3_1b", phase_hf_import, state, cfg1)
+    serve = run_phase("path_h_serve_two_slice_llama3_1b_f32",
+                      phase_serve_two_slice, cfg1, bat)
     train = run_phase("path_c_train_llama3_1b_bf16", phase_train_1b)
     run_phase("train_parity_llama3_1b_f32", phase_train_parity, state, cfg1)
     del state
@@ -2230,6 +2578,7 @@ def main() -> int:
     run_phase("hbm_cuda_exporter", phase_hbm_cuda_exporter)
     run_phase("xslice_sync_vs_plain", phase_xslice)
     run_phase("ring_bus_by_size", phase_ring_bus_by_size)
+    run_phase("perftest_emu", phase_perftest)
     dp = run_phase("path_d_two_slice_dp_llama3_1b_bf16", phase_two_slice_dp,
                    train["launches_per_step"])
     dpl = run_phase("path_e_two_slice_dp_per_layer_llama3_1b_bf16",
@@ -2248,7 +2597,8 @@ def main() -> int:
                 "e_two_slice_dp_per_layer": dpl["launches"][name],
                 "f_two_slice_elastic": ela["launches"][name],
                 "g_seq_parallel_ring": sp["ring"]["launches"][name],
-                "g_seq_parallel_ulysses": sp["ulysses"]["launches"][name]}
+                "g_seq_parallel_ulysses": sp["ulysses"]["launches"][name],
+                "h_serve_two_slice": serve["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

@@ -12,9 +12,10 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   beside each, its plain PyTorch version;
 - ``models.llama``: the Llama family for inference (prefill,
   KV-cache decode, ``generate``) and the bridge from the JAX
-  package's flax parameter tree;
+  package's flax parameter tree; ``models.convert``: the import of a
+  HuggingFace Llama checkpoint;
 - ``serving``: the paged decoder and the continuous batcher over
-  streamed weight pages;
+  streamed weight pages, alone or across ranks of a ``RingWorld``;
 - ``parallel.trainer``: the train step, on one device or across
   data-parallel slices;
 - ``transport`` (ctypes bindings to ``libtdr``, built from this

@@ -165,13 +165,16 @@ class ContinuousBatcher:
         self._acq_ptr += 1
         view = self.streamer.acquire(idx)
         # The page goes to the device once per step; the copy has read
-        # the window when upload returns, so the window and its credit
-        # go back before the compute, not after.
+        # the window when upload returns.
         page = self.decoder.upload(view)
-        self.streamer.release(view)
         # Re-arm the stream while this page computes: the next fetch
-        # rides the wire underneath the matmuls below.
+        # rides the wire underneath the matmuls below. Top up BEFORE the
+        # window goes back, as the JAX batcher does (it releases after
+        # the compute): the credit this release refunds is taken at the
+        # next acquire's top-up, so every rank posts its page gathers
+        # and KV broadcasts in one order, whichever package it runs.
         self._top_up()
+        self.streamer.release(view)
         return page
 
     # ------------------------------------------------------------ step

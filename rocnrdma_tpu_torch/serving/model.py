@@ -28,6 +28,7 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
+from ..utils.trace import trace
 from .pager import PageSet
 
 __all__ = [
@@ -231,7 +232,8 @@ class PagedDecoder:
         """Copy one landed host page to the device. Returns after the
         copy has read the whole page, so the caller may release the
         window right away."""
-        return torch.from_numpy(page).to(self.device, copy=True)
+        with trace.span("serve.upload", bytes=page.nbytes):
+            return torch.from_numpy(page).to(self.device, copy=True)
 
     def new_cache(self) -> Dict[str, torch.Tensor]:
         cfg = self.cfg

@@ -155,10 +155,13 @@ class WeightStreamer:
                 self.world._seed_coll(coll)
             return self.world.all_gather_async(self._windows[state["wi"]][:n])
 
+        # Host time of the window fill from the shard and the gather's
+        # post (after any wait for a credit).
         try:
-            inf = self.engine.submit(launch, produce=produce,
-                                     tag=("page", page_idx),
-                                     release_on_settle=False)
+            with trace.span("serve.prefetch", page=page_idx, bytes=n * 4):
+                inf = self.engine.submit(launch, produce=produce,
+                                         tag=("page", page_idx),
+                                         release_on_settle=False)
         except BaseException:
             if "wi" in state:
                 self._free.append(state["wi"])

@@ -6,9 +6,10 @@
 - no module of the port, not ``chip_smoke.py`` and not the port's
   example names JAX, flax or the JAX package in an import statement;
 - on a host without CUDA, every entry point called without ``device=``
-  raises instead of running on the CPU, and ``chip_smoke.py`` exits
+  raises instead of running on the CPU, ``chip_smoke.py`` exits
   non-zero without printing its result — in the repo, and alone in an
-  empty directory.
+  empty directory — and ``tools/torch_serve_smoke.py`` without
+  ``--cpu`` exits non-zero without its ``SERVE`` line.
 """
 
 import ast
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 import rocnrdma_tpu_torch
+from rocnrdma_tpu_torch.models import convert as tconvert
 from rocnrdma_tpu_torch.models import llama as tllama
 from rocnrdma_tpu_torch.parallel.seq_parallel import SeqParallelTrainer
 from rocnrdma_tpu_torch.parallel.trainer import Trainer
@@ -112,12 +115,22 @@ def _cpu_generate_without_device():
     tllama.generate(model, [[1, 2]], 2)
 
 
+def _hf_like():
+    """An object shaped like a transformers ``LlamaForCausalLM``."""
+    cfg = types.SimpleNamespace(
+        vocab_size=16, hidden_size=8, intermediate_size=16,
+        num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1,
+        max_position_embeddings=8)
+    return types.SimpleNamespace(config=cfg, state_dict=dict)
+
+
 ENTRY_POINTS = {
     "resolve_device": lambda: rocnrdma_tpu_torch.resolve_device(),
     "Llama": lambda: tllama.Llama(tllama.LLAMA_TINY),
     "init_params": lambda: tllama.init_params(tllama.LLAMA_TINY, 0),
     "init_cache": lambda: tllama.init_cache(tllama.LLAMA_TINY, 1),
     "generate": _cpu_generate_without_device,
+    "from_hf_model": lambda: tconvert.from_hf_model(_hf_like()),
     "PagedDecoder": lambda: tmodel.PagedDecoder(_serve_cfg()),
     "Trainer": lambda: Trainer("llama-tiny"),
     "Trainer(cross_slice_sync=)": lambda: Trainer(
@@ -164,3 +177,12 @@ def test_chip_smoke_fails_alone(no_cuda, tmp_path):
     proc = _run_chip_smoke(tmp_path)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_serve_smoke_fails_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_serve_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
+    assert proc.returncode != 0
+    assert "SERVE" not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr

@@ -1,10 +1,11 @@
 """The port's serving path (rocnrdma_tpu_torch.serving) against the JAX
 package's.
 
-Loopback (``world=None``) only: the port's wire mode waits for the
-transport port. On the CPU the port's decoder runs its kernels' plain
-versions in f32; tokens are held equal to the JAX package's numpy
-decoder and to the port's own ``generate``.
+Loopback (``world=None``) here; the wire mode (``world`` not None, over
+the port's ``RingWorld``) is held against the JAX batcher in
+``tests/test_torch_serving_wire.py``. On the CPU the port's decoder runs
+its kernels' plain versions in f32; tokens are held equal to the JAX
+package's numpy decoder and to the port's own ``generate``.
 """
 
 import jax

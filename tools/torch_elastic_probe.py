@@ -6,7 +6,7 @@
 Runs ``chip_smoke.py``'s path (f) flow once per entry of ``--late``:
 llama3-1b bf16 two-slice data-parallel training (``examples/
 two_slice_dp_torch.py`` at path (d)'s shape) under the port's
-coordinator, every step checkpointed, rank 1 SIGKILLed in its 3rd sync
+coordinator, every step checkpointed, rank 1 SIGKILLed in its 2nd sync
 call and started again. An entry above 0 makes rank 0 enter that sync
 call so many seconds late, so that its failed step meets a peer that
 died before it posted.
