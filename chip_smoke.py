@@ -96,7 +96,7 @@ the tensor-core route.
   on both ranks;
 - path (g): ``examples/seq_parallel_train_torch.py`` as two rank
   processes, llama3-1b bf16 with remat at its longest context (batch 1,
-  8192 tokens, 4096 a rank), ring then Ulysses, one warm step and 3 timed
+  8192 tokens, 4096 a rank), ring then Ulysses, one warm step and 2 timed
   on one batch: equal digests on both ranks after every step, the first
   losses of both modes and of the single-device model within 2e-2,
   launches and the attention's wire and staged bytes per rank per step
@@ -105,6 +105,26 @@ the tensor-core route.
   The attention kernel phases hold K3, K4 and K5 at (g)'s shapes too:
   the ring's full past shard (K4/K5 driven by an lse merged with another
   shard's) and causal diagonal at S 4096, Ulysses' causal S 8192.
+- path (i): the intra-slice dp x tp mesh, its positions sharing the one
+  card (``devices=["cuda:0"] * n``). f32 parity: llama3-1b, batch 2 x
+  seq 200, one step of ``Trainer(cfg, {"dp": 2, "tp": 2}, devices=...)``
+  against the single-device card ``Trainer`` from the same weights (loss
+  1e-4 relative, every gradient 1e-3 of its largest element, the
+  parameters after the AdamW step by the training-parity rule), no two
+  positions' parameters sharing storage. bf16: path (c)'s model, batch
+  and weights on dp 2 x tp 2 with remat, one warm step then 3 timed:
+  the first loss within 2e-2 relative of (c)'s, launches per step 4 x
+  (c)'s, K3/K4/K5 on the tensor-core route at the positions' local shape
+  (B1 H8 KVH4 S2048 D128); step ms, tokens/s, peak memory, the idle
+  share and the device time of the cross-position sums and gathers
+  (the ``mesh.*`` ranges) against the rest. Two slices:
+  ``examples/two_slice_dp_torch.py --mesh dp=1,tp=2 --devices
+  cuda:0,cuda:0`` as path (d)'s two rank processes (one warm step, 1
+  timed): digests equal on both ranks every step, (d)'s staged bytes,
+  launches 2 x (c)'s, first losses within 2e-2 relative of (d)'s; the
+  grads / sync / apply split. The kernel phases time K3, K4 and K5 at
+  (i)'s local shape, and K3's scalar f32 route at (b)'s and (h)'s
+  shortest and longest prompts (S 85 and 225).
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -291,14 +311,16 @@ def eager_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_steps(step, n: int) -> dict:
+def profile_steps(step, n: int, ranges=()) -> dict:
     """Device time per call of ``step`` from torch.profiler (CUPTI): the
     sum of kernel times, the kernels launched, and the six costliest
     kernels, with the host wall time of the same profiled calls and the
     card's idle share over it (1 - busy / wall). ``None`` where the
     profiler saw no device activity. Ranges that code marks on the
     device timeline (user annotations such as
-    ``Optimizer.step#AdamW.step``) span kernels and are not counted."""
+    ``Optimizer.step#AdamW.step``) span kernels and are not counted.
+    For each prefix in ``ranges``, the device time of the kernels
+    launched inside the host ranges so named (``range_device_ms``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -331,6 +353,8 @@ def profile_steps(step, n: int) -> dict:
             for name in _native.KERNELS}
     return {"profiled_wall_ms": wall, "device_ms": busy,
             "idle_share": 1.0 - busy / wall,
+            **({"range_device_ms": {p: range_device_ms(prof, p, n)
+                                    for p in ranges}} if ranges else {}),
             "kernels": sum(e.count for e in kern) / n,
             "annotations_not_counted": sorted(notes),
             "ported_kernel_ms": ours,
@@ -525,8 +549,15 @@ def phase_flash() -> dict:
              # over the whole 8192 tokens for half the heads
              flash_case(1, 16, 8, 4096, 128, bf, False, 15, True, TC),
              flash_case(1, 16, 8, 4096, 128, bf, True, 16, True, TC),
-             flash_case(1, 8, 4, 8192, 128, bf, True, 17, True, TC)]
-    return {"cases": cases}
+             flash_case(1, 8, 4, 8192, 128, bf, True, 17, True, TC),
+             # path (i): a position's local block at dp 2 x tp 2 of (c)
+             flash_case(1, 8, 4, 2048, 128, bf, True, 18, True, TC),
+             # the scalar f32 route at (b)'s and (h)'s shortest and
+             # longest prompts
+             flash_case(1, 16, 8, 85, 128, f32, True, 19, True, "scalar"),
+             flash_case(1, 16, 8, 225, 128, f32, True, 20, True, "scalar")]
+    return {"cases": cases, "path_g": [14, 15, 16], "path_i": 17,
+            "prompts_b_h": [18, 19]}
 
 
 def fwd_bwd_ms(fwd, args, grad) -> tuple:
@@ -706,8 +737,10 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 16, 8, 4096, 128, bf, True, 36, True, TC),
              flash_bwd_case(1, 8, 4, 8192, 128, bf, True, 37, True, TC),
              flash_bwd_case(1, 16, 8, 512, 128, f32, False, 38, False,
-                            merged=True)]
-    return {"cases": cases}
+                            merged=True),
+             # path (i): a position's local block at dp 2 x tp 2 of (c)
+             flash_bwd_case(1, 8, 4, 2048, 128, bf, True, 39, True, TC)]
+    return {"cases": cases, "path_g": [14, 15, 16], "path_i": 18}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:
@@ -1220,6 +1253,51 @@ def phase_train_1b() -> dict:
             "profiled_step": prof}
 
 
+def step_agreement(what: str, got, want, lr: float) -> dict:
+    """One AdamW step of two trainers from the same weights on the same
+    batch, by parameter name: ``got`` and ``want`` map each name to its
+    (parameter, gradient) after the step, ``want`` the reference. Every
+    gradient to TRAIN_GRAD_TOL of the reference's largest element, the
+    parameters by the rule above TRAIN_LOSS_TOL."""
+    worst_grad, worst_param, worst_decided = 0.0, 0.0, 0.0
+    far, decided, total = 0, 0, 0
+    for name, (pg, gg) in got.items():
+        pw, gw = (t.detach().cuda() for t in want[name])
+        gmax = gw.abs().max()
+        rel = float((gg - gw).abs().max() / gmax.clamp_min(1e-30))
+        require(rel <= TRAIN_GRAD_TOL, f"{what} grad {name}: rel err {rel}")
+        worst_grad = max(worst_grad, rel)
+        diff = (pg.detach() - pw).abs()
+        dmax = float(diff.max())
+        require(dmax <= 2 * lr + 1e-6,
+                f"{what} param {name}: max diff {dmax}")
+        worst_param = max(worst_param, dmax)
+        mask = (gw.abs() > 1e-2 * gmax) & (gw.abs() > 1e-6)
+        if bool(mask.any()):
+            dec = float(diff[mask].max())
+            require(dec <= TRAIN_DECIDED_TOL,
+                    f"{what} param {name}: decided elements differ by {dec}")
+            worst_decided = max(worst_decided, dec)
+        decided += int(mask.sum())
+        far += int((diff > 1e-5).sum())
+        total += diff.numel()
+    require(decided > 0,
+            f"{what}: no parameter's update was decided by its gradient")
+    require(far <= total // 10000,
+            f"{what}: {far} of {total} params differ > 1e-5")
+    return {"grad_max_rel_err": worst_grad, "grad_tol": TRAIN_GRAD_TOL,
+            "param_max_abs_diff_after_step": worst_param,
+            "param_tol": 2 * lr + 1e-6,
+            "decided_params": decided,
+            "decided_max_abs_diff": worst_decided,
+            "decided_tol": TRAIN_DECIDED_TOL,
+            "params_over_1e-5": far, "params": total}
+
+
+def named_step(model) -> dict:
+    return {n: (p, p.grad) for n, p in model.named_parameters()}
+
+
 def phase_train_parity(state, cfg) -> dict:
     """llama3-1b f32, one Trainer step on the card and on the CPU from
     the same weights: loss, every gradient, then every parameter."""
@@ -1233,43 +1311,13 @@ def phase_train_parity(state, cfg) -> dict:
     loss_c = cpu.step(tokens)
     require(abs(loss_g - loss_c) <= TRAIN_LOSS_TOL,
             f"train loss card {loss_g} vs CPU {loss_c}")
-    worst_grad, worst_param, worst_decided = 0.0, 0.0, 0.0
-    far, decided, total = 0, 0, 0
-    cpu_params = dict(cpu.model.named_parameters())
-    for name, pg in gpu.model.named_parameters():
-        pc = cpu_params[name]
-        gc = pc.grad.cuda()
-        gmax = gc.abs().max()
-        rel = float((pg.grad - gc).abs().max() / gmax.clamp_min(1e-30))
-        require(rel <= TRAIN_GRAD_TOL, f"grad {name}: rel err {rel}")
-        worst_grad = max(worst_grad, rel)
-        diff = (pg.detach() - pc.detach().cuda()).abs()
-        dmax = float(diff.max())
-        require(dmax <= 2 * lr + 1e-6, f"param {name}: max diff {dmax}")
-        worst_param = max(worst_param, dmax)
-        mask = (gc.abs() > 1e-2 * gmax) & (gc.abs() > 1e-6)
-        if bool(mask.any()):
-            dec = float(diff[mask].max())
-            require(dec <= TRAIN_DECIDED_TOL,
-                    f"param {name}: decided elements differ by {dec}")
-            worst_decided = max(worst_decided, dec)
-        decided += int(mask.sum())
-        far += int((diff > 1e-5).sum())
-        total += diff.numel()
-    require(decided > 0, "no parameter's update was decided by its gradient")
-    require(far <= total // 10000, f"{far} of {total} params differ > 1e-5")
+    agree = step_agreement("card vs CPU", named_step(gpu.model),
+                           named_step(cpu.model), lr)
     del gpu, cpu
     torch.cuda.empty_cache()
     return {"config": cfg.name + "/f32", "batch": b, "seq": s,
             "loss_card": loss_g, "loss_cpu": loss_c,
-            "loss_tol": TRAIN_LOSS_TOL,
-            "grad_max_rel_err": worst_grad, "grad_tol": TRAIN_GRAD_TOL,
-            "param_max_abs_diff_after_step": worst_param,
-            "param_tol": 2 * lr + 1e-6,
-            "decided_params": decided,
-            "decided_max_abs_diff": worst_decided,
-            "decided_tol": TRAIN_DECIDED_TOL,
-            "params_over_1e-5": far, "params": total}
+            "loss_tol": TRAIN_LOSS_TOL, **agree}
 
 
 def compute_mode() -> str:
@@ -1727,7 +1775,7 @@ def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
             ln = per[r][k]
             require(ln["launches"] == c_per_step,
                     f"{what} rank {r} step {k} launches {ln['launches']} "
-                    f"!= path (c)'s {c_per_step}")
+                    f"!= {c_per_step}")
             require(ln["staged_bytes"] == want_bytes,
                     f"{what} staged {ln['staged_bytes']} != {want_bytes}")
     timed = [[per[r][k] for k in range(2, steps + 1)] for r in range(2)]
@@ -1811,7 +1859,7 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     (d) repeats its own digests, the difference is a fault; if it does
     not, the backward is not bitwise repeatable on this card and (e)'s
     losses are held to (d)'s within 1e-3 relative instead."""
-    steps = 4
+    steps = 3
     env = {"TDR_TELEMETRY": "1", "TDR_TELEMETRY_RING": str(1 << 21)}
     ranks = run_two_slice(["--per-layer"], steps, env)
     res, finals = two_slice_summary(ranks, steps, c_per_step, "path (e)")
@@ -2256,7 +2304,7 @@ def phase_perftest() -> dict:
 
 # Sequence parallelism at llama3-1b's longest context: the global
 # sequence, its shards over world 2, and the rank processes' steps.
-SP_WORLD, SP_BATCH, SP_SEQ, SP_STEPS = 2, 1, 8192, 4
+SP_WORLD, SP_BATCH, SP_SEQ, SP_STEPS = 2, 1, 8192, 3
 SP_MODES = ("ring", "ulysses")
 # The parity phase: llama3-1b f32, one SGD step on 1024 tokens.
 SP_PARITY_SEQ, SP_PARITY_LR = 1024, 1e-2
@@ -2492,7 +2540,7 @@ def phase_seq_parallel() -> dict:
     """Path (g): ``examples/seq_parallel_train_torch.py`` as two rank
     processes on the card, llama3-1b bf16 with remat at its longest
     context (8192 tokens, a 4096-token shard a rank), ring then Ulysses;
-    one warm step and 3 timed. Gates: equal digests on both ranks after
+    one warm step and 2 timed. Gates: equal digests on both ranks after
     every step, each mode's first loss within 2e-2 relative of the other
     mode's and of the single-device model's on the whole sequence,
     launches, wire and staged bytes per rank per step as the model and
@@ -2522,6 +2570,191 @@ def phase_seq_parallel() -> dict:
     out["note"] = ("both ranks time-slice one card: step and grads ms are "
                    "not two-card numbers")
     return out
+
+
+# Path (i): the intra-slice dp x tp mesh, its positions sharing the card.
+MESH = {"dp": 2, "tp": 2}
+MESH_DEVICES = ["cuda:0"] * 4
+MESH_LOSS_TOL = 2e-2
+MESH_TWO_SLICE = "dp=1,tp=2"
+
+
+def expected_mesh_launches(cfg, positions: int) -> dict:
+    """Launches of each kernel per meshed train step: every position
+    runs every RMSNorm (K1 forward, K2 backward) on its own rows and
+    every attention (K3 forward, K5 and K4 backward) on its local heads
+    (or, where the heads do not divide tp, on all of them); under remat
+    the blocks' K1 and K3 once more. Path (c)'s counts times the
+    positions."""
+    L = cfg.n_layers
+    again = 1 if cfg.remat else 0
+    per_position = {"rmsnorm_fwd": 2 * L + 1 + again * 2 * L,
+                    "flash_fwd": L * (1 + again),
+                    "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
+                    "flash_bwd_dkv": L}
+    return {k: v * positions for k, v in per_position.items()}
+
+
+def mesh_local_shape(trainer, b: int, s: int) -> list:
+    """(B, H, KVH, S, D) of the attention each position runs."""
+    cfg, mesh = trainer.cfg, trainer.mesh
+    tp = mesh.shape["tp"] if trainer.model.attn_split else 1
+    return [b // mesh.shape["dp"], cfg.n_heads // tp, cfg.n_kv_heads // tp,
+            s, cfg.head_dim]
+
+
+def range_device_ms(prof, prefix: str, n: int) -> float:
+    """Device ms per call of the kernels launched inside the host ranges
+    named ``prefix...`` (``record_function``), outermost ranges only."""
+    from torch.autograd import DeviceType
+
+    total = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.name.startswith(prefix):
+            continue
+        parent = e.cpu_parent
+        while parent is not None and not parent.name.startswith(prefix):
+            parent = parent.cpu_parent
+        if parent is None:
+            total += e.device_time_total
+    return total / n / 1e3
+
+
+# The host ranges of the cross-position operations
+# (``parallel/mesh.py``, ``models/llama_mesh.py``): the tp sums, the
+# weight gathers, the logits' gather, the copies' gradient sum and the
+# broadcast after AdamW.
+MESH_RANGES = tuple(f"mesh.{k}" for k in (
+    "psum", "all_gather", "gather", "grad_sum", "broadcast"))
+
+
+def phase_mesh_parity(state, cfg) -> dict:
+    """Path (i), f32: llama3-1b, batch 2 x seq 200, one step of the
+    meshed ``Trainer`` on dp 2 x tp 2 (four positions on the card)
+    against the single-device card ``Trainer`` from the same weights:
+    the loss to 1e-4 relative, every gradient to 1e-3 of its largest
+    element, the parameters after the AdamW step by the training-parity
+    rule (decided elements to 2e-6)."""
+    b, s, lr = 2, 200, 3e-4
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (b, s + 1)))
+    single = Trainer(cfg, device="cuda", params=state, learning_rate=lr)
+    loss_1 = single.step(tokens)
+    want = named_step(single.model)
+    meshed = Trainer(cfg, MESH, devices=MESH_DEVICES, params=state,
+                     learning_rate=lr)
+    loss_m = meshed.step(tokens)
+    rel = abs(loss_m - loss_1) / abs(loss_1)
+    require(rel <= TRAIN_LOSS_TOL,
+            f"path (i) f32 loss {loss_m} vs single-device {loss_1}")
+    got = {n: (meshed.model.full(n), meshed.model.full(n, grad=True))
+           for n in meshed.model.names}
+    agree = step_agreement("path (i) f32", got, want, lr)
+    ptrs = [t.data_ptr() for t in meshed.model.parameters()]
+    require(len(set(ptrs)) == len(ptrs),
+            "path (i): two positions' parameters share storage")
+    shape = mesh_local_shape(meshed, b, s)
+    del single, meshed, want, got
+    torch.cuda.empty_cache()
+    return {"config": cfg.name + "/f32", "mesh": MESH,
+            "devices": MESH_DEVICES, "batch": b, "seq": s,
+            "local_attention_shape": shape, "loss_meshed": loss_m,
+            "loss_single_device": loss_1, "loss_rel_err": rel,
+            "loss_rel_tol": TRAIN_LOSS_TOL, **agree,
+            "parameters_share_no_storage": True}
+
+
+def phase_mesh_train(c: dict) -> dict:
+    """Path (i), bf16: ``Trainer("llama3-1b", {"dp": 2, "tp": 2},
+    devices=["cuda:0"] * 4, remat=True)`` at path (c)'s batch (2 x 2048,
+    ``default_rng(0)``) and weights (``init_params(seed=0)``), one warm
+    step then 3 timed. Gates: the first loss within 2e-2 relative of
+    (c)'s, every kernel's launches per step as the shapes give, K3/K4/K5
+    on the tensor-core route at the positions' local shape, losses
+    falling."""
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True)
+    b, s, steps = 2, 2048, 3
+    trainer = Trainer(cfg, MESH, devices=MESH_DEVICES, remat=True)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (b, s + 1))).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.step(tokens)]                   # warm
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    _native.reset_launches()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(trainer.step(tokens))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _native.launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = expected_mesh_launches(cfg, trainer.mesh.size)
+    want = {k: v * steps for k, v in per_step.items()}
+    require(launches == want, f"path (i) launches {launches} != {want}")
+    require(all(np.isfinite(losses)), f"path (i) losses {losses}")
+    require(losses[-1] < losses[0], f"path (i) loss did not fall: {losses}")
+    rel = abs(losses[0] - c["losses"][0]) / abs(c["losses"][0])
+    require(rel <= MESH_LOSS_TOL, f"path (i) first loss {losses[0]} vs "
+            f"path (c)'s {c['losses'][0]}")
+    shape = mesh_local_shape(trainer, b, s)
+    routes = {name: kernel_route(name, shape[-1], cfg.dtype)
+              for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    require(all(r == TC for r in routes.values()),
+            f"path (i) routes at {shape}: {routes}")
+    prof = profile_steps(lambda: trainer.step(tokens), 1, MESH_RANGES)
+    mean_ms = float(np.mean(step_ms))
+    del trainer
+    torch.cuda.empty_cache()
+    busy = prof["device_ms"]
+    mesh_ms = (sum(prof["range_device_ms"].values()) if busy is not None
+               else None)
+    return {"config": cfg.name + "/bf16/remat", "mesh": MESH,
+            "devices": MESH_DEVICES, "batch": b, "seq": s,
+            "local_attention_shape": shape, "routes": routes,
+            "warm_step_s": warm_s, "step_ms": step_ms,
+            "step_ms_mean": mean_ms, "path_c_step_ms_mean": c["step_ms_mean"],
+            "tokens_per_s": b * s / (mean_ms / 1e3),
+            "peak_mem_gb": peak / 1e9, "losses": losses,
+            "path_c_first_loss": c["losses"][0], "first_loss_rel_err": rel,
+            "first_loss_rel_tol": MESH_LOSS_TOL,
+            "launches": launches, "launches_per_step": {
+                k: v // steps for k, v in launches.items()},
+            "expected_per_step": per_step,
+            "expected_rule": "positions (4) x path (c)'s per step: K1 "
+                             "(2L+1)+2L, K3 2L, K2 2L+1, K5 L, K4 L at L 16",
+            "profiled_step": prof, "mesh_ops_device_ms": mesh_ms,
+            "compute_device_ms": (busy - mesh_ms if busy is not None
+                                  else None),
+            "note": "the four positions share one H100: not multi-card "
+                    "numbers"}
+
+
+def phase_mesh_two_slice(d: dict) -> dict:
+    """Path (i), two slices: ``examples/two_slice_dp_torch.py --mesh
+    dp=1,tp=2 --devices cuda:0,cuda:0`` as two rank processes over the
+    emu ring, llama3-1b bf16 with remat, 2 x 2048 a rank, one warm step
+    then 1 timed. Gates: equal digests on both ranks after every step,
+    path (d)'s staged bytes per rank per step, launches per rank per
+    step as the shapes give (two positions), each rank's first loss
+    within 2e-2 relative of (d)'s."""
+    steps = 2
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True)
+    want = expected_mesh_launches(cfg, 2)
+    ranks = run_two_slice(["--mesh", MESH_TWO_SLICE, "--devices",
+                           "cuda:0,cuda:0"], steps)
+    res, _ = two_slice_summary(ranks, steps, want, "path (i) two slices")
+    first = [res["losses"][r][0] for r in range(2)]
+    rel = [abs(first[r] - d["losses"][r][0]) / abs(d["losses"][r][0])
+           for r in range(2)]
+    require(max(rel) <= MESH_LOSS_TOL, f"path (i) two slices first losses "
+            f"{first} vs path (d)'s {[x[0] for x in d['losses']]}")
+    return {**res, "mesh": MESH_TWO_SLICE, "devices": "cuda:0,cuda:0",
+            "first_loss_rel_err_vs_d": rel,
+            "expected_rule": "positions (2) x path (c)'s per step",
+            "path_d_step_ms_mean": d["step_ms_mean"]}
 
 
 def run_phase(name: str, fn, *args):
@@ -2573,8 +2806,12 @@ def main() -> int:
                       phase_serve_two_slice, cfg1, bat)
     train = run_phase("path_c_train_llama3_1b_bf16", phase_train_1b)
     run_phase("train_parity_llama3_1b_f32", phase_train_parity, state, cfg1)
+    run_phase("path_i_mesh_parity_llama3_1b_f32", phase_mesh_parity, state,
+              cfg1)
     del state
     torch.cuda.empty_cache()
+    mesh = run_phase("path_i_mesh_dp2_tp2_llama3_1b_bf16", phase_mesh_train,
+                     train)
     run_phase("hbm_cuda_exporter", phase_hbm_cuda_exporter)
     run_phase("xslice_sync_vs_plain", phase_xslice)
     run_phase("ring_bus_by_size", phase_ring_bus_by_size)
@@ -2588,6 +2825,8 @@ def main() -> int:
                     phase_two_slice_elastic, train["launches_per_step"], dp)
     run_phase("sp_parity_llama3_1b_f32", phase_sp_parity)
     sp = run_phase("path_g_seq_parallel_llama3_1b_bf16", phase_seq_parallel)
+    mesh2 = run_phase("path_i_mesh_two_slice_llama3_1b_bf16",
+                      phase_mesh_two_slice, dp)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
@@ -2598,25 +2837,30 @@ def main() -> int:
                 "f_two_slice_elastic": ela["launches"][name],
                 "g_seq_parallel_ring": sp["ring"]["launches"][name],
                 "g_seq_parallel_ulysses": sp["ulysses"]["launches"][name],
-                "h_serve_two_slice": serve["launches"][name]}
+                "h_serve_two_slice": serve["launches"][name],
+                "i_mesh_dp2_tp2": mesh["launches"][name],
+                "i_mesh_two_slice": mesh2["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]
     whole = "plain_ms and library_ms are of the whole attention backward"
     keys = ("shape", "causal", "max_abs_err", "ms", "bound_ms", "bound_by",
             "plain_ms", "library_ms")
-    g_fwd = [{key: c[key] for key in keys + ("route",)}
-             for c in fl["cases"][-3:]]
+    def fwd(idx):
+        """Timed forward cases by index."""
+        return [{key: fl["cases"][i][key] for key in keys + ("route",)}
+                for i in idx]
 
-    def g_bwd(kernel, errs):
-        """The timed path (g) cases of a backward kernel."""
+    def bwd(kernel, errs, idx):
+        """Timed cases of a backward kernel by index."""
         return [{"shape": c["shape"], "causal": c["causal"],
-                 "merged_lse": c["merged_lse"],
+                 "merged_lse": c["merged_lse"], "route": c[
+                     "dq_route" if kernel == "dq" else "dkv_route"],
                  "max_abs_err": max(c[e + "_max_abs_err"] for e in errs),
                  "ms": c[kernel + "_ms"], "bound_ms": c[kernel + "_bound_ms"],
                  "bound_by": c[kernel + "_bound_by"],
                  "plain_ms": c["plain_ms"], "library_ms": c["library_ms"]}
-                for c in fl_bwd["cases"][-4:-1]]
+                for c in (fl_bwd["cases"][i] for i in idx)]
     kernels = [
         kernel_entry("rmsnorm_fwd", "rmsnorm.py:48", by_path, k1,
                      k1["max_abs_err"], k1["ms"], k1["bound_ms"],
@@ -2629,17 +2873,22 @@ def main() -> int:
                      k3["bound_by"], instance=k3["route"],
                      path_c={key: k3c[key] for key in (
                          "shape", "route", "max_abs_err", "ms", "bound_ms",
-                         "bound_by", "library_ms")}, path_g=g_fwd),
+                         "bound_by", "library_ms")},
+                     path_g=fwd(fl["path_g"]), path_i=fwd([fl["path_i"]]),
+                     prompts_b_h=fwd(fl["prompts_b_h"])),
         kernel_entry("flash_bwd_dkv", "attention.py:275", by_path, k45,
                      max(k45["dk_max_abs_err"], k45["dv_max_abs_err"]),
                      k45["dkv_ms"], k45["dkv_bound_ms"],
                      k45["dkv_bound_by"], note=whole,
                      instance=k45["dkv_route"],
-                     path_g=g_bwd("dkv", ("dk", "dv"))),
+                     path_g=bwd("dkv", ("dk", "dv"), fl_bwd["path_g"]),
+                     path_i=bwd("dkv", ("dk", "dv"), [fl_bwd["path_i"]])),
         kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
                      k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
                      k45["dq_bound_by"], note=whole,
-                     instance=k45["dq_route"], path_g=g_bwd("dq", ("dq",)))]
+                     instance=k45["dq_route"],
+                     path_g=bwd("dq", ("dq",), fl_bwd["path_g"]),
+                     path_i=bwd("dq", ("dq",), [fl_bwd["path_i"]]))]
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

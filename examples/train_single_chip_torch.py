@@ -17,6 +17,12 @@ On one H100:
 
     python examples/train_single_chip_torch.py --config llama3-1b \\
         --batch 2 --seq 2048 --steps 20
+
+``--mesh "dp=…,tp=…"`` trains on an intra-slice dp × tp mesh over
+``--devices`` (a comma list of torch devices, one per position; default
+every visible card). A list may name one device more than once, so
+``--mesh dp=2,tp=2 --devices cuda:0,cuda:0,cuda:0,cuda:0`` runs every
+position's kernels and the cross-position sums on one card.
 """
 
 import argparse
@@ -39,22 +45,34 @@ def main():
     ap.add_argument("--cpu", action="store_true",
                     help="run the plain PyTorch versions on the CPU; "
                          "default is the CUDA kernels on the card")
+    ap.add_argument("--mesh", default=None, metavar="dp=N,tp=M",
+                    help="an intra-slice dp x tp mesh")
+    ap.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                    help="the mesh's torch devices, one per position "
+                         "(default: every visible card)")
     args = ap.parse_args()
 
     import numpy as np
     import torch
 
+    from rocnrdma_tpu_torch.parallel.mesh import parse_mesh
     from rocnrdma_tpu_torch.parallel.trainer import Trainer
 
     device = "cpu" if args.cpu else "cuda"
-    trainer = Trainer(args.config, learning_rate=args.lr, weight_decay=1e-4,
+    trainer = Trainer(args.config,
+                      parse_mesh(args.mesh) if args.mesh else None,
+                      learning_rate=args.lr, weight_decay=1e-4,
+                      devices=(args.devices.split(",") if args.devices
+                               else None),
                       device=device, remat=True)
     cfg = trainer.cfg
     if args.seq > cfg.max_seq_len:
         ap.error(f"--seq {args.seq} exceeds max_seq_len={cfg.max_seq_len}")
     kind = torch.cuda.get_device_name(0) if device == "cuda" else "cpu"
+    mesh = getattr(trainer, "mesh", None)
     print(f"config={cfg.name} params={cfg.param_count():,} device={kind} "
-          f"kernels={'plain (cpu)' if args.cpu else 'cuda'}")
+          f"kernels={'plain (cpu)' if args.cpu else 'cuda'}"
+          + (f" mesh={mesh.shape}" if mesh is not None else ""))
 
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.batch, args.seq + 1)))

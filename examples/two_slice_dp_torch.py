@@ -2,12 +2,15 @@
 """Two-slice data-parallel Llama training over the RDMA transport, in
 PyTorch — the counterpart of ``examples/two_slice_dp.py``.
 
-Each process is one "slice": a ``Trainer`` on one device whose
-gradients are averaged ACROSS slices by a ring allreduce over this
-framework's transport (``CrossSliceAllReduce(mean=True)`` over a
-``RingWorld``). CUDA gradients take the shim's staged path: the ring
-folds on the host CPU, so they are copied into pinned host memory,
-reduced there and copied back.
+Each process is one "slice": a ``Trainer`` on one device, or with
+``--mesh "dp=…,tp=…"`` on an intra-slice dp × tp mesh over ``--devices``
+(BASELINE config 4), whose gradients are averaged ACROSS slices by a
+ring allreduce over this framework's transport
+(``CrossSliceAllReduce(mean=True)`` over a ``RingWorld``). A meshed
+slice hands the sync the whole gradient of each leaf, so the wire is
+the single-device slice's. CUDA gradients take the shim's staged path:
+the ring folds on the host CPU, so they are copied into pinned host
+memory, reduced there and copied back.
 
 Hardware-free (two processes on one machine, llama-tiny on the CPU):
 
@@ -17,6 +20,13 @@ Both slices on one card (each process a rank; they time-slice it):
 
     python examples/two_slice_dp_torch.py --config llama3-1b --remat \\
         --batch 2 --seq 2048 --steps 4 --engine emu --one-batch
+
+Each slice a dp × tp mesh (``--devices`` defaults to every visible card;
+a list may name one device more than once, so two tp positions can
+share the one card, or the CPU):
+
+    python examples/two_slice_dp_torch.py --cpu --mesh dp=1,tp=2 \\
+        --devices cpu,cpu --steps 3
 
 As real multi-host slices (one process per host):
 
@@ -89,12 +99,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 os.pardir))
 
 
-def params_digest(model) -> str:
-    """sha256 over every parameter's bytes, in state-dict order."""
+def params_digest(trainer) -> str:
+    """sha256 over every (whole) parameter's bytes, in state-dict
+    order."""
     import torch
 
     h = hashlib.sha256()
-    for _, p in model.named_parameters():
+    for p in trainer.state_dict().values():
         h.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
     return h.hexdigest()
 
@@ -181,6 +192,7 @@ def run_slice(rank: int, args) -> int:
     from rocnrdma_tpu_torch.ops import _native
     from rocnrdma_tpu_torch.parallel.checkpoint import (checkpoint_file,
                                                         restore_checkpoint)
+    from rocnrdma_tpu_torch.parallel.mesh import parse_mesh
     from rocnrdma_tpu_torch.parallel.trainer import ElasticPolicy, Trainer
     from rocnrdma_tpu_torch.transport import engine as eng
     from rocnrdma_tpu_torch.utils.trace import trace
@@ -214,8 +226,12 @@ def run_slice(rank: int, args) -> int:
         elastic = ElasticPolicy(
             os.path.join(args.elastic_dir, f"rank{rank}"), save_every=1,
             max_resumes=6, rebuild=dict(REBUILD))
-    trainer = Trainer(args.config, cross_slice_sync=sync, seed=0,
-                      device=device, elastic=elastic, **overrides)
+    trainer = Trainer(args.config,
+                      parse_mesh(args.mesh) if args.mesh else None,
+                      cross_slice_sync=sync, seed=0, device=device,
+                      devices=(args.devices.split(",") if args.devices
+                               else None),
+                      elastic=elastic, **overrides)
     cfg = trainer.cfg
     start, restore_ms = 0, None
     if elastic and os.path.exists(checkpoint_file(elastic.checkpoint_path)):
@@ -238,7 +254,7 @@ def run_slice(rank: int, args) -> int:
         first = {"restored_step": start, "restore_ms": restore_ms,
                  "restore_read_ms": restored["read_s"] * 1e3,
                  "restore_h2d_ms": restored["h2d_s"] * 1e3}
-    emit({"step": start, "digest": params_digest(trainer.model), **first,
+    emit({"step": start, "digest": params_digest(trainer), **first,
           "world_ready_monotonic": world_ready,
           "rendezvous_attempts": attempts,
           "ready_monotonic": time.monotonic(),
@@ -246,6 +262,7 @@ def run_slice(rank: int, args) -> int:
           "remat": cfg.remat, "device": device, "engine": world.engine.name,
           "link_tier": world.link_tier, "overlap": sync.overlap,
           "per_layer": sync.per_layer, "wire": sync.wire_dtype,
+          "mesh": getattr(getattr(trainer, "mesh", None), "shape", None),
           "batch": args.batch, "seq": args.seq})
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -272,7 +289,7 @@ def run_slice(rank: int, args) -> int:
                    for k, v in sync.last_split.items()},
                 "staged_bytes": staging.bytes - staged0,
                 "launches": _native.launches(),
-                "digest": params_digest(trainer.model)}
+                "digest": params_digest(trainer)}
         if elastic:
             resumed = trace.events("trainer.resume")[resumes0:]
             saved = trace.events("ckpt.save")[-1][2]
@@ -292,7 +309,7 @@ def run_slice(rank: int, args) -> int:
             if step > 1:
                 recorded.append(line)
         emit(line)
-    last = {"final_digest": params_digest(trainer.model),
+    last = {"final_digest": params_digest(trainer),
             "generation": world.generation,
             "resume": trace.counter("trainer.resume"),
             "rebuild": trace.counter("world.rebuild"),
@@ -336,6 +353,11 @@ def main():
                          "(chip_smoke.py's path (d) checks that it does)")
     ap.add_argument("--cpu", action="store_true",
                     help="train on the CPU (plain PyTorch versions)")
+    ap.add_argument("--mesh", default=None, metavar="dp=N,tp=M",
+                    help="each slice an intra-slice dp x tp mesh")
+    ap.add_argument("--devices", default=None, metavar="DEV,DEV,...",
+                    help="the mesh's torch devices, one per position "
+                         "(default: every visible card)")
     ap.add_argument("--overlap", action="store_true",
                     help="CrossSliceAllReduce(overlap=True): the bucketed "
                          "start/finish sync")

@@ -16,8 +16,9 @@ Layout mirrors the JAX package so each counterpart is easy to find:
   HuggingFace Llama checkpoint;
 - ``serving``: the paged decoder and the continuous batcher over
   streamed weight pages, alone or across ranks of a ``RingWorld``;
-- ``parallel.trainer``: the train step, on one device or across
-  data-parallel slices;
+- ``parallel.trainer``: the train step, on one device or on an
+  intra-slice dp × tp mesh (``parallel.mesh``, ``ops.sharding``,
+  ``models.llama_mesh``), alone or across data-parallel slices;
 - ``transport`` (ctypes bindings to ``libtdr``, built from this
   package's own copy of the native sources under ``native/``),
   ``collectives`` (``RingWorld`` and the cross-slice allreduce shim) and

@@ -51,9 +51,10 @@ from ..ops.rmsnorm import rmsnorm
 
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_TINY", "CONFIGS",
-    "rope_freqs", "apply_rope", "RMSNorm", "Attention", "MLP", "Block",
-    "Llama", "init_cache", "init_params", "generate", "params_from_flax",
-    "params_to_flax", "cross_entropy_loss",
+    "rope_freqs", "apply_rope", "project_qkv", "out_proj", "swiglu",
+    "RMSNorm", "Attention", "MLP", "Block",
+    "Llama", "init_cache", "init_params", "generate", "param_names",
+    "flax_tree", "params_from_flax", "params_to_flax", "cross_entropy_loss",
 ]
 
 
@@ -123,6 +124,32 @@ def apply_rope(x: torch.Tensor, freqs: torch.Tensor) -> torch.Tensor:
                      dim=-1).to(x.dtype)
 
 
+def project_qkv(x: torch.Tensor, wq: torch.Tensor, wk: torch.Tensor,
+                wv: torch.Tensor, head_dim: int, freqs: torch.Tensor):
+    """(B, S, D) normed input → roped q (B, H, S, hd) and k, v
+    (B, KVH, S, hd), the head counts read off the weights' widths (a
+    tensor-parallel shard holds fewer heads)."""
+    b, s, _ = x.shape
+
+    def heads(w):
+        return (x @ w).view(b, s, -1, head_dim).transpose(1, 2)
+
+    return apply_rope(heads(wq), freqs), apply_rope(heads(wk), freqs), \
+        heads(wv)
+
+
+def out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, hd) attention output → (B, S, D) through ``wo``."""
+    b, _, s, _ = o.shape
+    return o.transpose(1, 2).reshape(b, s, -1) @ wo
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """The MLP: (silu(x·W_gate) ∘ x·W_up)·W_down."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
 def _weight(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
@@ -151,17 +178,11 @@ class Attention(nn.Module):
     def qkv(self, x: torch.Tensor, freqs: torch.Tensor):
         """(B, S, D) normed input → roped q (B, H, S, hd) and k, v
         (B, KVH, S, hd); ``freqs`` already sliced to x's positions."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        hd = cfg.head_dim
-        q = (x @ self.wq).view(b, s, cfg.n_heads, hd).transpose(1, 2)
-        k = (x @ self.wk).view(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-        v = (x @ self.wv).view(b, s, cfg.n_kv_heads, hd).transpose(1, 2)
-        return apply_rope(q, freqs), apply_rope(k, freqs), v
+        return project_qkv(x, self.wq, self.wk, self.wv, self.cfg.head_dim,
+                           freqs)
 
     def out_proj(self, o: torch.Tensor) -> torch.Tensor:
-        b, _, s, _ = o.shape
-        return o.transpose(1, 2).reshape(b, s, -1) @ self.wo
+        return out_proj(o, self.wo)
 
     def attend(self, x: torch.Tensor, freqs: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -213,7 +234,7 @@ class MLP(nn.Module):
         self.w_down = _weight((f, d), dt, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (F.silu(x @ self.w_gate) * (x @ self.w_up)) @ self.w_down
+        return swiglu(x, self.w_gate, self.w_up, self.w_down)
 
 
 class Block(nn.Module):
@@ -403,19 +424,40 @@ def _to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+_LAYER_PARAMS = ("attn_norm.weight", "attn.wq", "attn.wk", "attn.wv",
+                 "attn.wo", "mlp_norm.weight", "mlp.w_gate", "mlp.w_up",
+                 "mlp.w_down")
+
+
+def param_names(n_layers: int) -> List[str]:
+    """The state-dict names of a :class:`Llama` of ``n_layers`` layers,
+    in its parameter order."""
+    return (["embed"]
+            + [f"layers.{i}.{n}" for i in range(n_layers)
+               for n in _LAYER_PARAMS]
+            + ["final_norm.weight", "lm_head"])
+
+
+def flax_tree(items) -> Dict[str, Any]:
+    """``(state-dict name, value)`` pairs → the flax-shaped tree
+    ``{"params": {"embed": {"embedding": v}, "layer_0": {...}, ...}}``."""
+    tree: Dict[str, Any] = {}
+    for name, value in items:
+        path = _flax_path(name)
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = value
+    return {"params": tree}
+
+
 def params_from_flax(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The JAX package's ``init_params`` tree (``{"params": {...}}``
     with numpy leaves) → this port's state dict, on the CPU and in the
     leaves' dtypes. Kernels stay (in, out): no transpose."""
     p = tree["params"] if "params" in tree else tree
-    n_layers = sum(1 for k in p if k.startswith("layer_"))
-    names = ["embed", "final_norm.weight", "lm_head"]
-    for i in range(n_layers):
-        names += [f"layers.{i}.{n}" for n in (
-            "attn_norm.weight", "attn.wq", "attn.wk", "attn.wv", "attn.wo",
-            "mlp_norm.weight", "mlp.w_gate", "mlp.w_up", "mlp.w_down")]
     out = {}
-    for name in names:
+    for name in param_names(sum(1 for k in p if k.startswith("layer_"))):
         node = p
         for key in _flax_path(name):
             node = node[key]
@@ -427,11 +469,5 @@ def params_to_flax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: a state dict → the flax
     tree with float32 numpy leaves (bf16 widens losslessly) — the tree
     the serving pager's ``pack_llama_params`` takes."""
-    tree: Dict[str, Any] = {}
-    for name, t in state.items():
-        path = _flax_path(name)
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = t.detach().float().cpu().numpy()
-    return {"params": tree}
+    return flax_tree((name, t.detach().float().cpu().numpy())
+                     for name, t in state.items())

@@ -45,9 +45,17 @@ trainer checkpoints.
 
 With ``seq_parallel`` (a ``RingWorld``) the constructor returns a
 :class:`~rocnrdma_tpu_torch.parallel.seq_parallel.SeqParallelTrainer`,
-as the JAX trainer's does. A mesh of more than one device is not ported
-yet, and asking for it raises ``NotImplementedError`` naming ROADMAP
-Queue 1 item 5.
+as the JAX trainer's does.
+
+With a ``mesh_shape`` of more than one position (``{"dp": 2, "tp":
+2}``) the constructor returns a :class:`MeshTrainer`: the JAX trainer's
+sharded step over an intra-slice dp × tp mesh
+(:mod:`~rocnrdma_tpu_torch.parallel.mesh`,
+:mod:`~rocnrdma_tpu_torch.models.llama_mesh`) on ``devices`` (default:
+every visible card). Its fused and overlapped cross-slice syncs take
+the whole gradient of each leaf, so the wire is the single-device
+trainer's; its per-layer sync and ``elastic`` are not ported yet and
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 7.
 """
 
 from __future__ import annotations
@@ -63,12 +71,14 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..collectives.torch_shim import tree_flatten
 from ..models.llama import (CONFIGS, Llama, LlamaConfig, _flax_path,
-                            cross_entropy_loss, init_params)
+                            cross_entropy_loss, flax_tree, init_params)
+from ..models.llama_mesh import MeshedLlama
 from ..transport.engine import TransportError, dtype_name
 from ..utils.trace import trace
 from .checkpoint import checkpoint_file, restore_checkpoint, save_checkpoint
+from .mesh import make_mesh
 
-__all__ = ["loss_fn", "ElasticPolicy", "Trainer"]
+__all__ = ["loss_fn", "ElasticPolicy", "Trainer", "MeshTrainer"]
 
 
 def loss_fn(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -119,6 +129,13 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"Queue 1, {item})")
 
 
+def _positions(mesh_shape: Optional[Dict[str, int]]) -> int:
+    n = 1
+    for size in (mesh_shape or {}).values():
+        n *= int(size)
+    return n
+
+
 def build_model(cfg: LlamaConfig, device: torch.device, seed: int,
                 params: Optional[Dict[str, torch.Tensor]]) -> Llama:
     """A :class:`Llama` on ``device`` holding ``params`` (a state dict),
@@ -147,14 +164,7 @@ def adamw(parameters, learning_rate: float,
 def param_tree(model: Llama, leaf) -> Dict[str, object]:
     """``leaf(p)`` of every parameter of ``model`` in the flax-shaped
     tree."""
-    tree: Dict[str, object] = {}
-    for name, p in model.named_parameters():
-        path = _flax_path(name)
-        node = tree
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = leaf(p)
-    return {"params": tree}
+    return flax_tree((name, leaf(p)) for name, p in model.named_parameters())
 
 
 def set_grads(model: Llama, tree) -> None:
@@ -176,8 +186,10 @@ class Trainer:
     ``dtype=torch.float32``). The weights are ``params`` (a state dict,
     e.g. from :func:`~rocnrdma_tpu_torch.models.llama.params_from_flax`)
     or else :func:`~rocnrdma_tpu_torch.models.llama.init_params` at
-    ``seed``. ``mesh_shape`` may only describe one device. ``elastic``
-    is an :class:`ElasticPolicy`.
+    ``seed``. The trainer runs on ``device``, or on ``devices[0]`` where
+    ``devices`` is given; a ``mesh_shape`` of more than one position
+    makes it a :class:`MeshTrainer`. ``elastic`` is an
+    :class:`ElasticPolicy`.
 
     ``Trainer(config, seq_parallel=world, sp_mode=...)`` returns a
     :class:`~rocnrdma_tpu_torch.parallel.seq_parallel.SeqParallelTrainer`
@@ -202,12 +214,16 @@ class Trainer:
                         f"{unsupported} does not apply to the "
                         "seq_parallel trainer (one device per ring rank)")
             return SeqParallelTrainer(*args, world=world, **kw)
+        if cls is Trainer and _positions(
+                args[1] if len(args) > 1 else kwargs.get("mesh_shape")) > 1:
+            return super().__new__(MeshTrainer)
         return super().__new__(cls)
 
     def __init__(self, config: Union[LlamaConfig, str],
                  mesh_shape: Optional[Dict[str, int]] = None,
                  learning_rate: float = 3e-4, weight_decay: float = 0.1,
-                 cross_slice_sync=None, seed: int = 0, seq_parallel=None,
+                 cross_slice_sync=None, devices=None, seed: int = 0,
+                 seq_parallel=None,
                  elastic: Optional[ElasticPolicy] = None,
                  device: DeviceLike = "cuda",
                  params: Optional[Dict[str, torch.Tensor]] = None,
@@ -223,18 +239,10 @@ class Trainer:
             raise ValueError(
                 "sp_mode selects the seq-parallel attention strategy and "
                 "requires seq_parallel=<RingWorld>")
-        n_dev = 1
-        for size in (mesh_shape or {}).values():
-            n_dev *= int(size)
-        if n_dev != 1:
-            raise _not_ported(f"a mesh of {n_dev} devices ({mesh_shape})",
-                              "item 5")
         cfg = CONFIGS[config] if isinstance(config, str) else config
         self.cfg = dataclasses.replace(cfg, **model_overrides)
-        self.device = resolve_device(device)
-        self.model = build_model(self.cfg, self.device, seed, params)
-        self.opt = adamw(self.model.parameters(), learning_rate,
-                         weight_decay)
+        self._place(mesh_shape, devices, device, seed, params)
+        self.opt = adamw(self._trained(), learning_rate, weight_decay)
         self.global_step = 0
         self.elastic = elastic
         self.cross_slice_sync = cross_slice_sync
@@ -259,9 +267,36 @@ class Trainer:
                     p.register_post_accumulate_grad_hook(
                         functools.partial(self._grad_ready, idx))
 
+    def _place(self, mesh_shape, devices, device, seed, params) -> None:
+        """Build the model on the trainer's device."""
+        if _positions(mesh_shape) > 1:
+            # Only Trainer's own constructor dispatches to MeshTrainer; a
+            # subclass would otherwise train one device and drop the mesh.
+            raise ValueError(
+                f"mesh_shape {mesh_shape} has more than one position: "
+                "construct Trainer (which returns a MeshTrainer) or "
+                "MeshTrainer itself")
+        self.device = resolve_device(devices[0] if devices else device)
+        self.model = build_model(self.cfg, self.device, seed, params)
+
+    def _trained(self):
+        """The tensors the optimizer updates."""
+        return self.model.parameters()
+
+    def _devices(self):
+        return [self.device]
+
     def _param_tree(self, leaf) -> Dict[str, object]:
         """``leaf(p)`` of every parameter in the flax-shaped tree."""
         return param_tree(self.model, leaf)
+
+    def param_tree(self) -> Dict[str, object]:
+        """The parameters as the flax-shaped tree."""
+        return self._param_tree(lambda p: p.detach())
+
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The parameters by state-dict name, in the model's order."""
+        return self.model.state_dict()
 
     def grads_tree(self) -> Dict[str, object]:
         """The parameters' gradients as the flax-shaped tree the sync
@@ -282,8 +317,9 @@ class Trainer:
             pending.push(idx, [p.grad for p in self._buckets[idx]])
 
     def _mark(self, phase: str, t0: float) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in self._devices():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         now = time.perf_counter()
         self.last_split[phase] = (now - t0) * 1e3
         return now
@@ -299,7 +335,7 @@ class Trainer:
         pending = None
         t0 = time.perf_counter()
         with trace.span("trainer.grads", step=step_no):
-            self.opt.zero_grad(set_to_none=True)
+            self._zero_grad()
             if self._per_layer:
                 # The hooks push each bucket from inside the backward,
                 # so its wire rides under the rest of the backward.
@@ -308,8 +344,7 @@ class Trainer:
                 self._pending_layers = pending
             try:
                 with trace.span("trainer.backward", step=step_no):
-                    loss = loss_fn(self.model, tokens)
-                    loss.backward()
+                    loss = self._backward(tokens)
             finally:
                 self._pending_layers = None
             if overlap and pending is None:
@@ -323,7 +358,7 @@ class Trainer:
                 tree = pending.finish()
             else:
                 tree = sync(self.grads_tree())
-            set_grads(self.model, tree)
+            self._set_grads(tree)
             t0 = self._mark("sync_ms", t0)
         # Quarantine check BEFORE apply: gradients the sync returned
         # non-finite would poison the params; while the pre-step state
@@ -336,7 +371,7 @@ class Trainer:
                     f"all-reduced gradients contain non-finite values "
                     f"at step {step_no}")
         with trace.span("trainer.apply", step=step_no):
-            self.opt.step()
+            self._apply()
             self._mark("apply_ms", t0)
         return loss
 
@@ -414,11 +449,25 @@ class Trainer:
         if self.cross_slice_sync is not None:
             return self._synced_step(tokens, step_no)
         with trace.span("trainer.fused_step", step=step_no):
-            self.opt.zero_grad(set_to_none=True)
-            loss = loss_fn(self.model, tokens)
-            loss.backward()
-            self.opt.step()
+            self._zero_grad()
+            loss = self._backward(tokens)
+            self._apply()
         return loss
+
+    def _zero_grad(self) -> None:
+        self.opt.zero_grad(set_to_none=True)
+
+    def _backward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The loss and its gradients in the parameters' ``.grad``."""
+        loss = loss_fn(self.model, tokens)
+        loss.backward()
+        return loss
+
+    def _set_grads(self, tree) -> None:
+        set_grads(self.model, tree)
+
+    def _apply(self) -> None:
+        self.opt.step()
 
     def step(self, tokens) -> float:
         """One optimizer step on (B, S) token ids; returns the loss
@@ -471,3 +520,102 @@ class Trainer:
                 (time.perf_counter() - t0) * 1e3
         trace.event("trainer.step", loss=value, step=self.global_step)
         return value
+
+
+class MeshTrainer(Trainer):
+    """The trainer over an intra-slice dp × tp mesh of more than one
+    position: what ``Trainer(config, mesh_shape, devices=...)`` returns
+    for such a ``mesh_shape``. The counterpart of the JAX trainer's
+    sharded jit (``rocnrdma_tpu/parallel/trainer.py:181-292``).
+
+    ``mesh_shape`` names the axes ``dp`` and ``tp`` (a missing one has
+    size 1); ``devices`` (default: every visible card, or the CPU where
+    ``device="cpu"``) holds one torch device per position and may name
+    one device more than once (:func:`~rocnrdma_tpu_torch.parallel.mesh.
+    make_mesh`). ``params``, a full state dict, is split by
+    :func:`~rocnrdma_tpu_torch.parallel.mesh.param_shardings`, so a JAX
+    meshed trainer's parameters (through ``params_from_flax``) enter as
+    they are; else ``init_params(seed)`` on the first device is.
+
+    A step runs :class:`~rocnrdma_tpu_torch.models.llama_mesh.MeshedLlama`
+    on the global batch (its rows split over ``dp``; the batch must
+    divide), sums each logical block's copies' gradients onto its
+    master, applies one AdamW update per logical block and writes it
+    back to the other copies. With ``cross_slice_sync`` (fused, or the
+    overlap mode's ``start``/``finish``) the sync takes the whole
+    gradient of each leaf on the first device in the flax-shaped tree
+    and its result is split back onto the masters, as the JAX shim
+    gathers a sharded leaf and puts the mean back on its sharding: the
+    wire, the leaf order and the schedule digest are those of a JAX rank
+    with the same mesh and of a single-device trainer.
+    :meth:`param_tree`, :meth:`grads_tree` and :meth:`state_dict` give
+    whole tensors."""
+
+    def __init__(self, config: Union[LlamaConfig, str],
+                 mesh_shape: Optional[Dict[str, int]] = None,
+                 learning_rate: float = 3e-4, weight_decay: float = 0.1,
+                 cross_slice_sync=None, devices=None, seed: int = 0,
+                 seq_parallel=None,
+                 elastic: Optional[ElasticPolicy] = None,
+                 device: DeviceLike = "cuda",
+                 params: Optional[Dict[str, torch.Tensor]] = None,
+                 **model_overrides) -> None:
+        what = f"a mesh of {_positions(mesh_shape)} positions ({mesh_shape})"
+        if elastic is not None:
+            raise _not_ported(f"elastic= (the checkpoint and resume) on "
+                              f"{what}", "item 7")
+        if (getattr(cross_slice_sync, "per_layer", False)
+                and hasattr(cross_slice_sync, "start_layered")):
+            raise _not_ported(f"the per-layer cross-slice sync on {what}",
+                              "item 7")
+        super().__init__(config, mesh_shape, learning_rate, weight_decay,
+                         cross_slice_sync, devices, seed, seq_parallel,
+                         elastic, device, params, **model_overrides)
+
+    def _place(self, mesh_shape, devices, device, seed, params) -> None:
+        unknown = set(mesh_shape) - {"dp", "tp"}
+        if unknown:
+            raise ValueError(f"mesh axes {sorted(unknown)} are not dp or "
+                             f"tp; the meshed trainer shards on those")
+        shape = dict(mesh_shape)
+        shape.setdefault("dp", 1)
+        shape.setdefault("tp", 1)
+        if devices is None and resolve_device(device).type == "cpu":
+            devices = [torch.device("cpu")]
+        self.mesh = make_mesh(shape, devices)
+        self.device = self.mesh.device_list[0]
+        state = (params if params is not None
+                 else init_params(self.cfg, seed, self.device))
+        self.model = MeshedLlama(self.cfg, self.mesh, state)
+
+    def _trained(self):
+        return self.model.masters()
+
+    def _devices(self):
+        return sorted(set(self.mesh.device_list), key=str)
+
+    def _param_tree(self, leaf) -> Dict[str, object]:
+        """``leaf`` of every whole parameter in the flax-shaped tree."""
+        return flax_tree((name, leaf(t))
+                          for name, t in self.model.state_dict().items())
+
+    def grads_tree(self) -> Dict[str, object]:
+        """The whole gradient of every leaf on the first device, in the
+        flax-shaped tree the sync takes (a replicated leaf's is its
+        master's own ``.grad`` where that lives on the first device)."""
+        return self.model.tree(grad=True)
+
+    def _zero_grad(self) -> None:
+        self.model.zero_grad()
+
+    def _backward(self, tokens: torch.Tensor) -> torch.Tensor:
+        loss = super()._backward(tokens)
+        self.model.reduce_grads()
+        return loss
+
+    def _set_grads(self, tree) -> None:
+        self.model.set_master_grads(tree)
+
+    def _apply(self) -> None:
+        self.opt.step()
+        self.model.broadcast()

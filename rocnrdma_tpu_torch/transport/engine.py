@@ -539,8 +539,7 @@ def copy_counters() -> Tuple[int, int]:
 # ------------------------------------------------------------------
 # Flight recorder (native telemetry.cc): raw ctypes surface. The
 # ergonomic API — merged native+Python timelines, Perfetto export,
-# histogram percentiles — lives in the JAX package's telemetry module,
-# which is not ported yet.
+# histogram percentiles — lives in rocnrdma_tpu_torch/telemetry/.
 
 def telemetry_enabled() -> bool:
     """Whether the native flight recorder is recording (TDR_TELEMETRY

@@ -44,7 +44,8 @@ from rocnrdma_tpu.parallel.trainer import Trainer as JaxTrainer
 from rocnrdma_tpu.parallel.trainer import loss_fn as jax_loss_fn
 from rocnrdma_tpu_torch import trace
 from rocnrdma_tpu_torch.models import llama as tllama
-from rocnrdma_tpu_torch.parallel.trainer import Trainer, loss_fn
+from rocnrdma_tpu_torch.parallel.trainer import (ElasticPolicy, Trainer,
+                                                   loss_fn)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LOSS_TOL = 2e-4
@@ -191,11 +192,29 @@ def test_trainer_copies_the_given_weights():
         assert tr.model.state_dict()[name].data_ptr() != t.data_ptr()
 
 
+class _PerLayerSync:
+    """A sync offering the per-layer entry (``per_layer`` and
+    ``start_layered``), as ``CrossSliceAllReduce(per_layer=True)``."""
+
+    per_layer = True
+
+    def start_layered(self, plan):
+        raise AssertionError("never reached")
+
+    def __call__(self, tree):
+        return tree
+
+
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh_shape={"dp": 1, "tp": 2}), "item 5"),
-    (dict(mesh_shape={"dp": 2, "tp": 1}), "item 5"),
+    (dict(mesh_shape={"dp": 1, "tp": 2}, devices=["cpu"] * 2,
+          cross_slice_sync=_PerLayerSync()), "item 7"),
+    (dict(mesh_shape={"dp": 2, "tp": 1}, devices=["cpu"] * 2,
+          cross_slice_sync=lambda tree: tree,
+          elastic=ElasticPolicy("unused")), "item 7"),
 ])
 def test_unported_options_raise(kwargs, item):
+    """On a mesh of more than one position the per-layer sync and the
+    elastic policy are not ported yet and name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         Trainer("llama-tiny", device="cpu", **kwargs)
 
