@@ -48,12 +48,47 @@
 //     past S never.
 //
 // Scalar route, f32 at every D and bf16 at D = 16 and 32
-// (flash_fwd_kernel): one block of 256 threads per (b, h, tile of 64
-// query rows) loops over kv tiles of 32 rows held in f32 shared memory,
-// m, l and the accumulator in f32 registers, scalar f32 FMA products
-// (full f32, which the f32 card-vs-CPU parity needs; TF32 would not hold
-// it).
-// The loop stops at the causal diagonal and masks the ragged tail.
+// (flash_fwd_kernel), on the CUDA cores in full f32 (fmaf; TF32 would
+// not hold the f32 card-vs-CPU parity). It serves the f32 paths: the
+// serving prefill of PagedDecoder (one request at a time: B 1, H 16,
+// KVH 8, D 128 at llama3-1b, prompts of 85-256 tokens), generate in f32
+// and the f32 parity gates (S 200, the ring's 512-token shards).
+//   - What bounds it. At S 2048 the products: 4 * D flops per visible
+//     pair at the 67 TFLOP/s of the f32 FMA units, 0.257 ms for B 1
+//     H 16 (the kernel reaches about 40% of that on the H100). At the
+//     serving prompts the products are a few microseconds of that peak;
+//     the time is the chain one warp walks (its rows against every key
+//     up to the diagonal), the copies that feed it (every position tile
+//     re-reads its K/V through L2; the first tile's latency) and the
+//     launch, and whether every SM has a chain to walk at all.
+//   - Rows. A warp owns 8 query rows for the whole loop (softmax
+//     reductions are shuffles inside the warp, P and the rescale factors
+//     pass through a per-warp slice of shared memory), so a chain is 8
+//     rows long whatever the block size. A block has 1, 2, 4 or 8 warps,
+//     the most that still give at least one block per SM (launch picks
+//     it from B, H, S and the card's SM count): 1 at S 85, 2 at S 225
+//     and 256, 4 at S 512, 8 at S 2048 (B 1, H 16, KVH 8). The rows of a
+//     block are the heads of one GQA group (up to gcd(group, rows)) at
+//     consecutive positions, interleaved, so the group reads each K/V
+//     tile once and the rows of a warp end near one causal diagonal. The
+//     grid starts with the longest causal position tiles.
+//   - Bytes. K and V tiles of 32 keys reach shared memory by cp.async
+//     16-byte copies into a 2-stage ring, the next tile's copies started
+//     right after the one barrier of each tile, so they overlap this
+//     tile's products; keys past S arrive as zeros. bf16 tiles stay bf16
+//     in shared memory and widen to f32 in registers as they are read.
+//     A warp skips a tile past its last row's diagonal and masks only
+//     the tiles that cross its diagonal or S.
+//   - Products, register-blocked. q.k^T: a lane holds a 2 x 4 score
+//     tile (rows r, r + 4; keys j, j + 8, j + 16, j + 24) and reads 2 Q
+//     and 4 K float4s for 32 FMAs (the previous kernel: 6 scalar loads
+//     for 8); a warp's load is 4 or 8 distinct 16-byte words, one
+//     shared-memory wavefront. p.v: a
+//     lane holds PR rows x 4 (or 8) columns of O and reads P as float4s
+//     along the keys and V as float4s along the columns: 12 loads for
+//     128 FMAs at D 128. Every sum runs in a fixed order (d, then keys
+//     in order, tile after tile), so the result is bitwise repeatable
+//     and independent of the block size chosen.
 //
 // C interface (bound with ctypes): pointers and the stream are void*,
 // dtype 0 = float32, 1 = bfloat16; flash_fwd returns cudaGetLastError(),
@@ -65,162 +100,329 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <numeric>
+
 #include "hopper_tc.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 32;       // key rows per kv tile
-constexpr int kThreads = 256; // 16 row groups x 16 lanes
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// ----------------------------------------------------------- scalar route
+
+constexpr int kBK = 32;        // keys per kv tile
+constexpr int kRows = 8;       // query rows per warp
+constexpr int kMaxWarps = 8;   // warps per block at most
+constexpr int kStages = 2;     // K/V ring depth
+constexpr int kPStride = kBK + 8;  // P row stride in floats: 8 banks apart
+
+// Shared memory of a block of nw warps: the Q rows, the K/V ring (both in
+// T, rows padded by 16 bytes so that the float4 reads of 8 consecutive
+// rows hit distinct banks), then per warp its P tile and its rows'
+// rescale factors and sums (f32).
+template <typename T, int HD>
+struct Smem {
+  static constexpr int kLd = HD + 16 / sizeof(T);         // row stride
+  static constexpr int kChunks = HD * sizeof(T) / 16;     // copies a row
+  static constexpr int kTile = kBK * kLd;                 // one K or V tile
+  static constexpr size_t bytes(int nw) {
+    return sizeof(T) * (static_cast<size_t>(kRows * nw * kLd) +
+                        2 * kStages * kTile) +
+           sizeof(float) * static_cast<size_t>(nw * kRows * (kPStride + 2));
+  }
+};
+
+// One 16-byte copy into shared memory; with `valid` false the 16 bytes
+// are zeros and nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-template <int HD>
-constexpr int smem_floats() {
-  return kBQ * (HD + 1) + kBK * (HD + 1) + kBK * HD + kBQ * (kBK + 1);
+// Four consecutive elements of shared memory as f32 (bf16 widens exactly).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
 }
 
-// Copy `rows` rows of width HD starting at global row r0 into a padded
-// f32 tile; rows at or past S are zero-filled.
-template <typename T, int HD, int LD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows, int S) {
-  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    const int g = r0 + r;
-    dst[r * LD + c] = g < S ? to_f(src[static_cast<size_t>(g) * HD + c]) : 0.f;
+__device__ __forceinline__ void st4(float* p, float a, float b, float c,
+                                    float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float a, float b,
+                                    float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Keys k0 .. k0 + kBK - 1 of K and V into one ring stage.
+template <typename T, int HD>
+__device__ __forceinline__ void load_kv(T* ks, const T* kp, const T* vp,
+                                        int k0, int S) {
+  using L = Smem<T, HD>;
+  constexpr int kEl = 16 / sizeof(T);
+  for (int e = threadIdx.x; e < kBK * L::kChunks; e += blockDim.x) {
+    const int r = e / L::kChunks, c = e % L::kChunks;  // powers of two
+    const int g = k0 + r;
+    const size_t src = static_cast<size_t>(g < S ? g : 0) * HD + c * kEl;
+    cp_async16(ks + r * L::kLd + c * kEl, kp + src, g < S);
+    cp_async16(ks + L::kTile + r * L::kLd + c * kEl, vp + src, g < S);
   }
 }
 
+// One block: the heads h0 .. h0 + gb - 1 of one kv head (gb = 1 << gb_log2)
+// at npos consecutive positions from p0; block row r is head
+// h0 + r % gb at position p0 + r / gb, and warp w owns rows 8 w .. 8 w + 7.
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  float* __restrict__ lse, int H, int KVH, int S, float scale,
-                 int causal) {
-  constexpr int NC = HD / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                     // [kBQ][HD + 1]
-  float* Ks = Qs + kBQ * (HD + 1);      // [kBK][HD + 1]
-  float* Vs = Ks + kBK * (HD + 1);      // [kBK][HD]
-  float* Ps = Vs + kBK * HD;            // [kBQ][kBK + 1]
+                 int causal, int gb_log2) {
+  using L = Smem<T, HD>;
+  constexpr int kEl = 16 / sizeof(T);
+  // p.v lane layout: LR row groups x LD column groups; a lane holds rows
+  // vr + LR i (i < PR) and columns 4 vc + (HD / NCH) ch (ch < NCH).
+  constexpr int LD = HD / 4 < 16 ? HD / 4 : 16;
+  constexpr int NCH = HD / (4 * LD);
+  constexpr int LR = 32 / LD;
+  constexpr int PR = kRows / LR;
 
-  const int tx = threadIdx.x & 15;  // lane within the row group
-  const int ty = threadIdx.x >> 4;  // row group: rows ty + 16 * i
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * kBQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int nw = blockDim.x >> 5;
+  const int nrows = kRows * nw;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* ring = Qs + nrows * L::kLd;
+  float* pbase = reinterpret_cast<float*>(ring + 2 * kStages * L::kTile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Ps = pbase + warp * kRows * kPStride;
+  float* Al = pbase + nw * kRows * kPStride + warp * 2 * kRows;
+  float* Ls = Al + kRows;
 
-  const T* qp = q + static_cast<size_t>(bh) * S * HD;
+  const int gb = 1 << gb_log2;
+  const int groups = H >> gb_log2;              // head groups per batch row
+  const int b = blockIdx.x / groups;
+  const int h0 = (blockIdx.x - b * groups) << gb_log2;
+  const int kvh = h0 / (H / KVH);
+  const int npos = nrows >> gb_log2;
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * npos;  // longest first
+  const int p_last = min(S - 1, p0 + npos - 1);
+  const int n_kv = causal ? p_last / kBK + 1 : (S + kBK - 1) / kBK;
+
   const T* kp = k + static_cast<size_t>(b * KVH + kvh) * S * HD;
   const T* vp = v + static_cast<size_t>(b * KVH + kvh) * S * HD;
 
-  int n_kv = (S + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);
-
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int e = threadIdx.x; e < nrows * L::kChunks; e += blockDim.x) {
+    const int r = e / L::kChunks, c = e % L::kChunks;
+    const int pos = p0 + (r >> gb_log2);
+    const int h = h0 + (r & (gb - 1));
+    const size_t src =
+        (static_cast<size_t>(b * H + h) * S + (pos < S ? pos : 0)) * HD +
+        c * kEl;
+    cp_async16(Qs + r * L::kLd + c * kEl, q + src, pos < S);
   }
+  load_kv<T, HD>(ring, kp, vp, 0, S);
+  cp_async_commit();
 
-  load_tile<T, HD, HD + 1>(Qs, qp, q0, kBQ, S);
+  // Positions of this warp's first and last row; a warp whose rows all
+  // lie past S only helps with the copies.
+  const int row0 = warp * kRows;
+  const int pw_lo = p0 + (row0 >> gb_log2);
+  const int pw_hi = min(S - 1, p0 + ((row0 + kRows - 1) >> gb_log2));
+  const bool live = pw_lo < S;
+
+  // q.k^T lane layout: rows qr and qr + 4, keys qk + 8 j.
+  const int qr = lane >> 3, qk = lane & 7;
+  const int qpos[2] = {p0 + ((row0 + qr) >> gb_log2),
+                       p0 + ((row0 + qr + 4) >> gb_log2)};
+  const T* qrow0 = Qs + (row0 + qr) * L::kLd;
+  const T* qrow1 = qrow0 + 4 * L::kLd;
+  const int vr = lane / LD, vc = lane % LD;
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[PR][NCH][4];
+#pragma unroll
+  for (int i = 0; i < PR; ++i)
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][ch][e] = 0.f;
 
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's Ks/Vs/Ps fully consumed
-    load_tile<T, HD, HD + 1>(Ks, kp, k0, kBK, S);
-    load_tile<T, HD, HD>(Vs, vp, k0, kBK, S);
+    // Tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next copies overwrite.
+    cp_async_wait_all();
     __syncthreads();
+    if (kt + 1 < n_kv) {
+      load_kv<T, HD>(ring + ((kt + 1) & 1) * 2 * L::kTile, kp, vp,
+                     (kt + 1) * kBK, S);
+      cp_async_commit();
+    }
+    const int k0 = kt * kBK;
+    if (!live || (causal && k0 > pw_hi)) continue;  // warp-uniform
+    const T* Ks = ring + (kt & 1) * 2 * L::kTile;
+    const T* Vs = Ks + L::kTile;
 
-    float s[4][2];
+    float s[2][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+    for (int j = 0; j < 4; ++j) s[0][j] = s[1][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float k0v = Ks[tx * (HD + 1) + d];
-      const float k1v = Ks[(tx + 16) * (HD + 1) + d];
+    for (int d = 0; d < HD; d += 4) {
+      const float4 a0 = ld4(qrow0 + d), a1 = ld4(qrow1 + d);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float qv = Qs[(ty + 16 * i) * (HD + 1) + d];
-        s[i][0] = fmaf(qv, k0v, s[i][0]);
-        s[i][1] = fmaf(qv, k1v, s[i][1]);
+      for (int j = 0; j < 4; ++j) {
+        const float4 kb = ld4(Ks + (qk + 8 * j) * L::kLd + d);
+        s[0][j] = fmaf(a0.x, kb.x, s[0][j]);
+        s[0][j] = fmaf(a0.y, kb.y, s[0][j]);
+        s[0][j] = fmaf(a0.z, kb.z, s[0][j]);
+        s[0][j] = fmaf(a0.w, kb.w, s[0][j]);
+        s[1][j] = fmaf(a1.x, kb.x, s[1][j]);
+        s[1][j] = fmaf(a1.y, kb.y, s[1][j]);
+        s[1][j] = fmaf(a1.z, kb.z, s[1][j]);
+        s[1][j] = fmaf(a1.w, kb.w, s[1][j]);
       }
     }
 
+    // Online softmax of the lane's two rows; the 8 lanes of a row
+    // (lane bits 0-2) reduce by butterfly, so all hold the same m and l.
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > pw_lo);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty + 16 * i;
-      bool ok[2];
+    for (int i = 0; i < 2; ++i) {
+      bool ok[4];
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        ok[j] = kj < S && (!causal || kj <= qi);
+      for (int j = 0; j < 4; ++j) {
+        const int kj = k0 + qk + 8 * j;
+        ok[j] = !edge || (kj < S && (!causal || kj <= qpos[i]));
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = 1; o < 8; o <<= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m[i], mx);
       const float alpha = expf(m[i] - m_new);
       // A masked key contributes exactly 0, so a row that sees no key in
-      // this tile (the padded tail) never turns into NaN.
-      const float p0 = ok[0] ? expf(s[i][0] - m_new) : 0.f;
-      const float p1 = ok[1] ? expf(s[i][1] - m_new) : 0.f;
-      float rs = p0 + p1;
+      // this tile keeps alpha = 1 and never turns into NaN.
+      float rs = 0.f;
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int j = 0; j < 4; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        rs += p;
+        Ps[(qr + 4 * i) * kPStride + qk + 8 * j] = p;
+      }
+#pragma unroll
+      for (int o = 1; o < 8; o <<= 1)
         rs += __shfl_xor_sync(0xffffffffu, rs, o);
       l[i] = l[i] * alpha + rs;
       m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-      Ps[(ty + 16 * i) * (kBK + 1) + tx] = p0;
-      Ps[(ty + 16 * i) * (kBK + 1) + tx + 16] = p1;
+      if (qk == 0) Al[qr + 4 * i] = alpha;
     }
-    __syncthreads();
+    __syncwarp();
 
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float vv[NC];
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) vv[cc] = Vs[c * HD + tx + 16 * cc];
+    for (int i = 0; i < PR; ++i) {
+      const float a = Al[vr + LR * i];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[(ty + 16 * i) * (kBK + 1) + c];
+      for (int ch = 0; ch < NCH; ++ch)
 #pragma unroll
-        for (int cc = 0; cc < NC; ++cc) acc[i][cc] = fmaf(p, vv[cc], acc[i][cc]);
+        for (int e = 0; e < 4; ++e) acc[i][ch][e] *= a;
+    }
+#pragma unroll 2
+    for (int c = 0; c < kBK; c += 4) {
+      float4 p[PR];
+#pragma unroll
+      for (int i = 0; i < PR; ++i)
+        p[i] = ld4(Ps + (vr + LR * i) * kPStride + c);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const float4 vv =
+              ld4(Vs + (c + kk) * L::kLd + 4 * vc + (HD / NCH) * ch);
+#pragma unroll
+          for (int i = 0; i < PR; ++i) {
+            const float pk = comp(p[i], kk);
+            acc[i][ch][0] = fmaf(pk, vv.x, acc[i][ch][0]);
+            acc[i][ch][1] = fmaf(pk, vv.y, acc[i][ch][1]);
+            acc[i][ch][2] = fmaf(pk, vv.z, acc[i][ch][2]);
+            acc[i][ch][3] = fmaf(pk, vv.w, acc[i][ch][3]);
+          }
+        }
       }
     }
   }
+  if (!live) return;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + qr + 4 * i;
     const float lc = fmaxf(l[i], 1e-30f);
-    T* orow = out + (static_cast<size_t>(bh) * S + qi) * HD;
+    if (qk == 0) {
+      Ls[qr + 4 * i] = l[i];
+      if (qpos[i] < S)
+        lse[static_cast<size_t>(b * H + h0 + (r & (gb - 1))) * S +
+            qpos[i]] = m[i] + logf(lc);
+    }
+  }
+  __syncwarp();
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) orow[tx + 16 * cc] = from_f<T>(acc[i][cc] / lc);
-    if (tx == 0) lse[static_cast<size_t>(bh) * S + qi] = m[i] + logf(lc);
+  for (int i = 0; i < PR; ++i) {
+    const int r = row0 + vr + LR * i;
+    const int pos = p0 + (r >> gb_log2);
+    if (pos >= S) continue;
+    const float lc = fmaxf(Ls[vr + LR * i], 1e-30f);
+    T* orow = out + (static_cast<size_t>(b * H + h0 + (r & (gb - 1))) * S +
+                     pos) * HD;
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+      st4(orow + 4 * vc + (HD / NCH) * ch, acc[i][ch][0] / lc,
+          acc[i][ch][1] / lc, acc[i][ch][2] / lc, acc[i][ch][3] / lc);
+  }
+}
+
+// Warps per block: the most (8, 4, 2, 1) that still give at least one
+// block per SM; the rows of a block take gb = gcd(group, rows) heads of
+// one GQA group.
+struct ScalarGrid {
+  int warps, gb_log2;
+  dim3 grid;
+};
+
+ScalarGrid scalar_grid(int B, int H, int KVH, int S, int sms) {
+  ScalarGrid g{};
+  for (int nw = kMaxWarps;; nw >>= 1) {
+    const int gb = std::gcd(H / KVH, kRows * nw);
+    const int npos = kRows * nw / gb;
+    const long long tiles = (S + npos - 1) / npos;
+    g.warps = nw;
+    g.gb_log2 = __builtin_ctz(gb);
+    g.grid = dim3(B * H / gb, static_cast<unsigned>(tiles));
+    if (nw == 1 || static_cast<long long>(B) * (H / gb) * tiles >= sms)
+      return g;
   }
 }
 
@@ -228,20 +430,27 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int KVH, int S, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats<HD>();
+  using L = Smem<T, HD>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        static_cast<int>(L::bytes(kMaxWarps)));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H), block(kThreads);
-  flash_fwd_kernel<T, HD><<<grid, block, smem, stream>>>(
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const ScalarGrid g = scalar_grid(B, H, KVH, S, sms);
+  if (g.grid.y > 65535) return cudaErrorInvalidValue;
+  flash_fwd_kernel<T, HD><<<g.grid, 32 * g.warps, L::bytes(g.warps),
+                            stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out),
-      static_cast<float*>(lse), H, KVH, S, scale, causal);
+      static_cast<float*>(lse), H, KVH, S, scale, causal, g.gb_log2);
   return cudaGetLastError();
 }
 
@@ -463,15 +672,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     void* out, void* lse, int B, int H, int KVH, int S,
-                     float scale, int causal, cudaStream_t s) {
-  switch (D) {
-    case 16: return launch<T, 16>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
-    case 32: return launch<T, 32>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
-    case 64: return launch<T, 64>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
-    case 128: return launch<T, 128>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+// The scalar instances: f32 at every D, bf16 at D 16 and 32 (bf16 at D
+// 64 and 128 takes the tensor-core route).
+cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
+                     const void* v, void* out, void* lse, int B, int H,
+                     int KVH, int S, float scale, int causal,
+                     cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  switch (dtype * 1000 + D) {
+    case 16: return launch<float, 16>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+    case 1016: return launch<bf16, 16>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
+    case 1032: return launch<bf16, 32>(q, k, v, out, lse, B, H, KVH, S, scale, causal, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -499,10 +713,8 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                                     causal, s);
       break;
     case hopper_tc::kRouteScalar:
-      e = dtype == 0 ? dispatch<float>(D, q, k, v, out, lse, B, H, KVH, S,
-                                       scale, causal, s)
-                     : dispatch<__nv_bfloat16>(D, q, k, v, out, lse, B, H,
-                                               KVH, S, scale, causal, s);
+      e = dispatch(D, dtype, q, k, v, out, lse, B, H, KVH, S, scale,
+                   causal, s);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -129,6 +129,16 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
         f"Queue 1, {item})")
 
 
+def _check_elastic(elastic, cross_slice_sync) -> None:
+    """The JAX trainer's refusal of a policy with nothing to recover: an
+    ``elastic=`` without ``cross_slice_sync`` would checkpoint every step
+    and never resume."""
+    if elastic is not None and cross_slice_sync is None:
+        raise ValueError(
+            "elastic= recovers the cross-slice transport world and "
+            "requires cross_slice_sync")
+
+
 def _positions(mesh_shape: Optional[Dict[str, int]]) -> int:
     n = 1
     for size in (mesh_shape or {}).values():
@@ -239,6 +249,7 @@ class Trainer:
             raise ValueError(
                 "sp_mode selects the seq-parallel attention strategy and "
                 "requires seq_parallel=<RingWorld>")
+        _check_elastic(elastic, cross_slice_sync)
         cfg = CONFIGS[config] if isinstance(config, str) else config
         self.cfg = dataclasses.replace(cfg, **model_overrides)
         self._place(mesh_shape, devices, device, seed, params)
@@ -561,6 +572,7 @@ class MeshTrainer(Trainer):
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  **model_overrides) -> None:
         what = f"a mesh of {_positions(mesh_shape)} positions ({mesh_shape})"
+        _check_elastic(elastic, cross_slice_sync)
         if elastic is not None:
             raise _not_ported(f"elastic= (the checkpoint and resume) on "
                               f"{what}", "item 7")

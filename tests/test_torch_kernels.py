@@ -21,7 +21,10 @@ at groups 1, 2 and 4, and on the transposed views the model passes,
 within the same bf16 tolerance: the route rounds P and dS to bf16 before
 their second product, which the plain versions keep in f32, and these
 roundings stay inside it. f32, and bf16 at D 16 and 32, take the scalar
-route.
+route; K3's scalar route is checked at the edges of its 8-row warps and
+32-key tiles, twice for bitwise repeatability, and a batch row of a
+larger call (another block size) against the call on that row alone,
+bitwise.
 """
 
 import pytest
@@ -208,6 +211,62 @@ def test_flash_tensor_core_route_at_tile_edges(cuda, s, d, group, causal):
     again = flash_attention_shard_grads(q, k, v, out, lse, do, causal)
     for name, a, g in zip(("dq", "dk", "dv"), again, got):
         assert torch.equal(a, g), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d,dtype", [(16, torch.float32), (32, torch.float32),
+                                     (64, torch.float32),
+                                     (128, torch.float32),
+                                     (16, torch.bfloat16),
+                                     (32, torch.bfloat16)])
+@pytest.mark.parametrize("s", [1, 15, 16, 17, 31, 33, 63, 64, 65, 85, 225])
+def test_flash_scalar_route_at_tile_edges(cuda, s, d, dtype, group, causal):
+    """K3's scalar route (f32 at every D, bf16 at D 16 and 32) at the
+    edges of its 8-row warps and 32-key tiles, at the serving prompts'
+    lengths 85 and 225, at groups 1, 2 and 4: one launch, out and lse
+    against the plain version, and a second call bitwise equal."""
+    assert kernel_route("flash_fwd", d, dtype) == "scalar"
+    b, kvh = 2, 2
+    h = kvh * group
+    g = torch.Generator(device=cuda).manual_seed(s * 31 + d + group)
+    q = torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(b, kvh, s, d, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    _native.reset_launches()
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert _native.launches()["flash_fwd"] == 1
+    want_o, want_l = flash_attention_lse_reference(q, k, v, causal=causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    torch.testing.assert_close(out.float(), want_o.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(lse, want_l, rtol=2e-4, atol=2e-4)
+    again, lse2 = flash_attention_lse(q, k, v, causal=causal)
+    assert torch.equal(again, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("s", [85, 225, 512])
+def test_flash_scalar_route_rows_independent_of_the_grid(cuda, dtype, d, s):
+    """The scalar route picks its block size (8 to 64 rows) and how many
+    heads of a group share a block from B, H and S; each row's sums run
+    in the same order whatever it picks, so a batch row of a B 4 call is
+    bitwise the B 1 call on that row alone."""
+    g = torch.Generator(device=cuda).manual_seed(s + d)
+    q = torch.randn(4, 16, s, d, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(4, 8, s, d, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    for causal in (True, False):
+        out, lse = flash_attention_lse(q, k, v, causal=causal)
+        one, lse1 = flash_attention_lse(q[2:3], k[2:3], v[2:3],
+                                        causal=causal)
+        torch.cuda.synchronize()
+        assert torch.equal(out[2:3], one) and torch.equal(lse[2:3], lse1)
 
 
 @pytest.mark.gpu

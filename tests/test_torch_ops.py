@@ -76,11 +76,13 @@ def test_rmsnorm_bf16_keeps_dtype_and_matches_jax():
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,kvh,s", [(4, 2, 37), (4, 4, 16), (2, 1, 24)])
+@pytest.mark.parametrize("h,kvh,s", [(4, 2, 37), (4, 4, 16), (2, 1, 24),
+                                     (4, 2, 85), (4, 2, 225)])
 def test_flash_lse_matches_jax_pallas(causal, h, kvh, s):
     """Port's flash_attention_lse (plain, CPU) vs JAX
     flash_attention_lse through its Pallas kernel in interpret mode:
-    out and lse to 2e-4, GQA (KVH < H) and an odd S included."""
+    out and lse to 2e-4, GQA (KVH < H) and an odd S included, and the
+    serving batcher's shortest and longest prompt lengths (85, 225)."""
     b, d = 1, 16
     q, k, v = (_normal(i, shp) for i, shp in
                enumerate([(b, h, s, d), (b, kvh, s, d), (b, kvh, s, d)]))

@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from rocnrdma_tpu.models import llama as jllama
+from rocnrdma_tpu.parallel.trainer import ElasticPolicy as JaxElasticPolicy
 from rocnrdma_tpu.parallel.trainer import Trainer as JaxTrainer
 from rocnrdma_tpu.parallel.trainer import loss_fn as jax_loss_fn
 from rocnrdma_tpu_torch import trace
@@ -217,6 +218,27 @@ def test_unported_options_raise(kwargs, item):
     elastic policy are not ported yet and name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=item):
         Trainer("llama-tiny", device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("mesh_shape,devices", [
+    (None, None),
+    ({"dp": 2, "tp": 1}, ["cpu"] * 2),
+], ids=["single", "dp2"])
+def test_elastic_without_sync_refused_as_jax(mesh_shape, devices):
+    """``elastic=`` without ``cross_slice_sync`` has no transport world
+    to recover: the port refuses it as the JAX trainer does, with the same
+    type and message, on one device and on a mesh (before the mesh's own
+    refusal of the elastic policy)."""
+    with pytest.raises(ValueError) as jax_err:
+        JaxTrainer("llama-tiny", mesh_shape or {"dp": 1, "tp": 1},
+                   elastic=JaxElasticPolicy("unused"))
+    with pytest.raises(ValueError) as torch_err:
+        Trainer("llama-tiny", mesh_shape, devices=devices, device="cpu",
+                elastic=ElasticPolicy("unused"))
+    assert type(torch_err.value) is type(jax_err.value)
+    assert str(torch_err.value) == str(jax_err.value) == (
+        "elastic= recovers the cross-slice transport world and requires "
+        "cross_slice_sync")
 
 
 def test_plain_sync_gets_the_flax_shaped_tree():

@@ -20,6 +20,13 @@ script sits in), builds its kernels and prints one JSON line:
   causal, seed 24), which takes the scalar route in every tree;
 - the instance K5 launches at each of the two cases (``kernel_route``;
   "scalar" in a tree whose K5 had no other);
+- the sha256 of K3's f32 out and lse (``flash_attention_lse``, the
+  scalar route) at B 1, H 16, KVH 8, S 225, D 128, causal, seed 20: the
+  serving prefill's shape at one of its prompt lengths;
+- the device ms of one call of K3's f32 route at B 1, H 16, KVH 8,
+  D 128: causal at S 85, 225, 256 and 2048 (the serving prompts and the
+  f32 training shape), full at S 512 (the ring's past shard in the f32
+  sequence-parallel parity);
 - the device ms of one call of K3 (``flash_attention_lse``) at path
   (a)'s and path (c)'s shapes, and of K4 (``flash_bwd_dkv``) and K5 at
   path (c)'s, each from CUDA-graph replay of calls cycling through
@@ -123,6 +130,14 @@ def main() -> int:
     dq32 = flash_bwd_dq(*bwd32, causal=True)
     torch.cuda.synchronize()
     qa, ka, va, _ = inputs(4, 32, 8, 512, 128, 1)
+    q3, k3, v3, _ = inputs(1, 16, 8, 225, 128, 20, torch.float32)
+    o3, l3 = flash_attention_lse(q3, k3, v3, causal=True)
+    k3_f32_ms = {}
+    for s, causal in ((85, True), (225, True), (256, True), (512, False),
+                      (2048, True)):
+        f = inputs(1, 16, 8, s, 128, s, torch.float32)[:3]
+        k3_f32_ms[f"s{s}_{'causal' if causal else 'full'}"] = time_ms(
+            lambda *a, c=causal: flash_attention_lse(*a, causal=c), f)
     res = {
         "root": str(Path(args.root).resolve()),
         "package": str(Path(_native.__file__).resolve().parents[1]),
@@ -137,6 +152,8 @@ def main() -> int:
                         "causal": True,
                         "dq_route": dq_route(128, torch.float32)},
         "dq_f32_sha256": sha(dq32), "lse_f32_sha256": sha(bwd32[4]),
+        "k3_f32_out_sha256": sha(o3), "k3_f32_lse_sha256": sha(l3),
+        "k3_f32_ms": k3_f32_ms,
         "k3_ms_path_a": time_ms(
             lambda *a: flash_attention_lse(*a, causal=True), (qa, ka, va)),
         "k3_ms_path_c": time_ms(
