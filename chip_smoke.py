@@ -47,7 +47,8 @@ the tensor-core route.
   device busy vs wall, peak memory, losses, launch counts;
 - training parity: llama3-1b in f32, batch 1, seq 200, loss and every
   parameter's gradient on the card (kernels) against the CPU (plain
-  versions), then the parameters after one AdamW step;
+  versions), then the parameters after one AdamW step; the card step's
+  launches as the model says;
 - the CUDA exporter: what the card and host offer for RDMA into device
   memory (compute mode, DMA_BUF_SUPPORTED, HCAs), a dma-buf exported
   from a 64 MiB tensor, the emu engine's answer to it, the
@@ -93,7 +94,7 @@ the tensor-core route.
   split over two rank processes, one SGD step in each mode (ring
   attention, Ulysses): the global loss and every synced gradient against
   the single-device ``Trainer`` on the whole sequence, parameters equal
-  on both ranks;
+  on both ranks, each rank's launches as the model says;
 - path (g): ``examples/seq_parallel_train_torch.py`` as two rank
   processes, llama3-1b bf16 with remat at its longest context (batch 1,
   8192 tokens, 4096 a rank), ring then Ulysses, one warm step and 2 timed
@@ -111,7 +112,8 @@ the tensor-core route.
   against the single-device card ``Trainer`` from the same weights (loss
   1e-4 relative, every gradient 1e-3 of its largest element, the
   parameters after the AdamW step by the training-parity rule), no two
-  positions' parameters sharing storage. bf16: path (c)'s model, batch
+  positions' parameters sharing storage, both steps' launches as the
+  model says. bf16: path (c)'s model, batch
   and weights on dp 2 x tp 2 with remat, one warm step then 3 timed:
   the first loss within 2e-2 relative of (c)'s, launches per step 4 x
   (c)'s, K3/K4/K5 on the tensor-core route at the positions' local shape
@@ -123,8 +125,12 @@ the tensor-core route.
   timed): digests equal on both ranks every step, (d)'s staged bytes,
   launches 2 x (c)'s, first losses within 2e-2 relative of (d)'s; the
   grads / sync / apply split. The kernel phases time K3, K4 and K5 at
-  (i)'s local shape, and K3's scalar f32 route at (b)'s and (h)'s
-  shortest and longest prompts (S 85 and 225).
+  (i)'s local shape, K3's scalar f32 route at (b)'s and (h)'s shortest
+  and longest prompts (S 85 and 225), and K4's and K5's scalar f32
+  routes at the training parity's shape (B1 H16 KVH8 S200, causal), the
+  sequence-parallel parity's past shard (S 512, full, merged lse) and
+  S 2048; the build fails unless K3, K4 and K5 each have their six
+  scalar instances with no spill.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -440,10 +446,14 @@ def phase_build() -> dict:
             f"tensor-core kernels missing or spilling: {tc}")
     # K3's scalar route (f32 at D 16-128, bf16 at D 16 and 32) keeps its
     # score and output tiles in registers too.
-    k3s = {k: r for k, r in res.items() if k.startswith("flash_fwd_kernel<")}
-    require(len(k3s) == 6 and all(r["stack"] == 0 and r["local"] == 0
-                                  for r in k3s.values()),
-            f"K3 scalar instances missing or spilling: {k3s}")
+    # So do K4's and K5's (f32 at D 16-128, bf16 at D 16 and 32): their
+    # dK/dV and dQ accumulators.
+    for kernel in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+        inst = {k: r for k, r in res.items()
+                if k.startswith(kernel + "_kernel<")}
+        require(len(inst) == 6 and all(r["stack"] == 0 and r["local"] == 0
+                                       for r in inst.values()),
+                f"{kernel} scalar instances missing or spilling: {inst}")
     return {"compile_s": secs, "resources": res}
 
 
@@ -734,7 +744,7 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 16, 8, 2048, 128, f32, True, 24, True),
              flash_bwd_case(1, 16, 8, 1000, 128, bf, True, 25, False),
              flash_bwd_case(1, 16, 8, 1000, 128, f32, False, 26, False),
-             flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, False),
+             flash_bwd_case(1, 16, 8, 200, 128, f32, True, 27, True),
              # K4's and K5's tensor-core routes at their edges (see
              # phase_flash)
              flash_bwd_case(1, 4, 4, 1, 64, bf, True, 28, False, TC),
@@ -753,12 +763,12 @@ def phase_flash_bwd() -> dict:
                             merged=True),
              flash_bwd_case(1, 16, 8, 4096, 128, bf, True, 36, True, TC),
              flash_bwd_case(1, 8, 4, 8192, 128, bf, True, 37, True, TC),
-             flash_bwd_case(1, 16, 8, 512, 128, f32, False, 38, False,
+             flash_bwd_case(1, 16, 8, 512, 128, f32, False, 38, True,
                             merged=True),
              # path (i): a position's local block at dp 2 x tp 2 of (c)
              flash_bwd_case(1, 8, 4, 2048, 128, bf, True, 39, True, TC)]
     return {"cases": cases, "path_g": [14, 15, 16], "path_i": 18,
-            "scalar_f32": 3}
+            "scalar_f32": [6, 17, 3]}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:
@@ -1323,7 +1333,11 @@ def phase_train_parity(state, cfg) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(3).integers(
         0, cfg.vocab_size, (b, s + 1)))
     gpu = Trainer(cfg, device="cuda", params=state, learning_rate=lr)
+    _native.reset_launches()
     loss_g = gpu.step(tokens)
+    launches = _native.launches()
+    require(launches == expected_train_launches(gpu.model, 1),
+            f"train parity launches {launches}")
     cpu = Trainer(cfg, device="cpu", learning_rate=lr,
                   params={k: v.cpu() for k, v in state.items()})
     loss_c = cpu.step(tokens)
@@ -1335,7 +1349,7 @@ def phase_train_parity(state, cfg) -> dict:
     torch.cuda.empty_cache()
     return {"config": cfg.name + "/f32", "batch": b, "seq": s,
             "loss_card": loss_g, "loss_cpu": loss_c,
-            "loss_tol": TRAIN_LOSS_TOL, **agree}
+            "loss_tol": TRAIN_LOSS_TOL, "launches": launches, **agree}
 
 
 def compute_mode() -> str:
@@ -2338,6 +2352,7 @@ import dataclasses, hashlib, json, sys
 import numpy as np, torch
 from rocnrdma_tpu_torch.collectives.world import RingWorld
 from rocnrdma_tpu_torch.models import llama
+from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.parallel.trainer import Trainer, loss_fn
 from rocnrdma_tpu_torch.transport.engine import Engine
 
@@ -2363,7 +2378,9 @@ for mode in ("ring", "ulysses"):
     tr = Trainer(cfg, seq_parallel=world, sp_mode=mode, device="cuda",
                  params=state,
                  optimizer=lambda ps: torch.optim.SGD(ps, lr=lr))
+    _native.reset_launches()
     gloss = tr.step(tokens[:, :-1][:, shard], tokens[:, 1:][:, shard])
+    launches = _native.launches()
     h = hashlib.sha256()
     for _, p in tr.model.named_parameters():
         h.update(p.detach().reshape(-1).view(torch.uint8).cpu().numpy())
@@ -2372,7 +2389,8 @@ for mode in ("ring", "ulysses"):
             for n, p in tr.model.named_parameters()}
     worst = max(rels, key=rels.get)
     res = {"loss": gloss, "digest": h.hexdigest(), "ref_loss": ref_loss,
-           "grad_max_rel_err": rels[worst], "worst_grad": worst}
+           "grad_max_rel_err": rels[worst], "worst_grad": worst,
+           "launches": launches}
     out[mode] = res
     tr.close()
     del tr
@@ -2415,12 +2433,18 @@ def phase_sp_parity() -> dict:
             require(got["grad_max_rel_err"] <= TRAIN_GRAD_TOL,
                     f"sp parity {mode} rank {r}: grad {got['worst_grad']} "
                     f"rel err {got['grad_max_rel_err']}")
+            require(got["launches"] == expected_sp_launches(
+                llama.LLAMA3_1B, mode, r),
+                    f"sp parity {mode} rank {r}: launches "
+                    f"{got['launches']}")
         out[mode] = {"loss": a["loss"], "single_device_loss": a["ref_loss"],
                      "loss_rel_err": rel,
                      "grad_max_rel_err_by_rank": [
                          res[r][mode]["grad_max_rel_err"] for r in range(2)],
                      "worst_grad": a["worst_grad"], "digest": a["digest"],
-                     "digests_equal": True}
+                     "digests_equal": True,
+                     "launches_by_rank": [res[r][mode]["launches"]
+                                          for r in range(2)]}
     return out
 
 
@@ -2657,11 +2681,19 @@ def phase_mesh_parity(state, cfg) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(11).integers(
         0, cfg.vocab_size, (b, s + 1)))
     single = Trainer(cfg, device="cuda", params=state, learning_rate=lr)
+    _native.reset_launches()
     loss_1 = single.step(tokens)
+    launches = {"single_device": _native.launches()}
     want = named_step(single.model)
     meshed = Trainer(cfg, MESH, devices=MESH_DEVICES, params=state,
                      learning_rate=lr)
+    _native.reset_launches()
     loss_m = meshed.step(tokens)
+    launches["meshed"] = _native.launches()
+    require(launches == {
+        "single_device": expected_train_launches(single.model, 1),
+        "meshed": expected_mesh_launches(cfg, len(MESH_DEVICES))},
+        f"path (i) f32 launches {launches}")
     rel = abs(loss_m - loss_1) / abs(loss_1)
     require(rel <= TRAIN_LOSS_TOL,
             f"path (i) f32 loss {loss_m} vs single-device {loss_1}")
@@ -2678,7 +2710,7 @@ def phase_mesh_parity(state, cfg) -> dict:
             "devices": MESH_DEVICES, "batch": b, "seq": s,
             "local_attention_shape": shape, "loss_meshed": loss_m,
             "loss_single_device": loss_1, "loss_rel_err": rel,
-            "loss_rel_tol": TRAIN_LOSS_TOL, **agree,
+            "loss_rel_tol": TRAIN_LOSS_TOL, "launches": launches, **agree,
             "parameters_share_no_storage": True}
 
 
@@ -2902,14 +2934,14 @@ def main() -> int:
                      path_g=bwd("dkv", ("dk", "dv"), fl_bwd["path_g"]),
                      path_i=bwd("dkv", ("dk", "dv"), [fl_bwd["path_i"]]),
                      scalar_f32=bwd("dkv", ("dk", "dv"),
-                                    [fl_bwd["scalar_f32"]])),
+                                    fl_bwd["scalar_f32"])),
         kernel_entry("flash_bwd_dq", "attention.py:322", by_path, k45,
                      k45["dq_max_abs_err"], k45["dq_ms"], k45["dq_bound_ms"],
                      k45["dq_bound_by"], note=whole,
                      instance=k45["dq_route"],
                      path_g=bwd("dq", ("dq",), fl_bwd["path_g"]),
                      path_i=bwd("dq", ("dq",), [fl_bwd["path_i"]]),
-                     scalar_f32=bwd("dq", ("dq",), [fl_bwd["scalar_f32"]]))]
+                     scalar_f32=bwd("dq", ("dq",), fl_bwd["scalar_f32"]))]
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,73 +1,44 @@
-// Tile math shared by the flash-attention backward kernels
-// (flash_bwd_dkv.cu, K4, and flash_bwd_dq.cu, K5): the counterpart of
-// rocnrdma_tpu/ops/attention.py:_bwd_tile, so that the two kernels cannot
-// rebuild the softmax, its mask or its scale differently.
+// The per-element rule shared by the flash-attention backward kernels
+// (flash_bwd_dkv.cu, K4, and flash_bwd_dq.cu, K5), in both their routes:
+// the counterpart of rocnrdma_tpu/ops/attention.py:_bwd_tile, so that the
+// two kernels cannot rebuild the softmax, its mask or its scale
+// differently.
 //
-// In the scalar kernels a block of kThreads threads works on one (kBQ
-// query rows) x (kBK key rows) tile at a time. Thread (ty, tx) = (tid / 16, tid % 16) owns tile
-// rows ty + 16 * i (i < 4) and tile columns tx + 16 * j (j < 4). Tiles
-// live in shared memory in f32, rows padded by one float so that the
-// column walks below hit distinct banks.
+// The scalar routes (f32 at every D, bf16 at D 16 and 32) follow K3's
+// (scalar_route.cuh): a warp owns 8 rows for its whole loop (query rows
+// in K5, key rows in K4) and the other operand streams past it in 32-row
+// tiles through a 2-stage cp.async ring. Each warp rebuilds its 8 x 32
+// tile of s = q . k and dp = dO . v (warp_dot: each lane sums a quarter
+// of D for all 8 rows against 4 tile rows, then two shuffle exchanges
+// leave it 2 rows x 4 columns), applies the rule below in registers,
+// passes p and ds through a per-warp slice of shared memory (under
+// __syncwarp, never a block barrier) and accumulates the second products
+// register-blocked (scalar_route::RowTile). Every sum of a row runs in one
+// fixed order (s and dp by warp_dot's tree; dQ over keys ascending; dK
+// and dV over the group's heads, then query rows ascending), whatever
+// block size the launch picks; a tile a warp skips or finds fully masked
+// adds exact zeros, so a row's result is bitwise the same at any batch
+// size.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "scalar_route.cuh"
 
 namespace flash_bwd {
 
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 row groups x 16 lanes
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// Copy `rows` rows of width HD from global row r0 into a padded f32 tile
-// (leading dimension HD + 1); rows at or past S are zero-filled and never
-// read.
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int rows, int S) {
-  for (int e = threadIdx.x; e < rows * HD; e += kThreads) {
-    const int r = e / HD, c = e % HD;
-    const int gr = r0 + r;
-    dst[r * (HD + 1) + c] =
-        gr < S ? to_f(src[static_cast<size_t>(gr) * HD + c]) : 0.f;
-  }
-}
-
-// lse and delta of kBQ query rows from row q0; 0 past S.
-__device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
-                                          const float* lse,
-                                          const float* delta, int q0, int S) {
-  for (int r = threadIdx.x; r < kBQ; r += kThreads) {
-    const int gr = q0 + r;
-    lse_s[r] = gr < S ? lse[gr] : 0.f;
-    delta_s[r] = gr < S ? delta[gr] : 0.f;
-  }
-}
+constexpr int kBT = 32;            // rows per ring tile of the scalar routes
+constexpr int kPStride = kBT + 8;  // p / ds slice row stride: 8 banks apart
+constexpr int kNJ = kBT / 8;       // tile rows per lane in warp_dot
 
 // The per-element rule of _bwd_tile, the one place both backward
-// kernels take it from (softmax_grad_tile below, for the scalar kernels;
-// the tensor-core fragment code in flash_bwd_dkv.cu and flash_bwd_dq.cu):
-// a (query qi, key kj) pair is visible when both lie inside the
-// sequence and, when causal, the key does not follow the query
-// (a query row at or past S is masked whole, so rows beyond the sequence
-// contribute nothing; the JAX package gets the same by padding dO with
-// zeros); with s = q . k and dp = dO . v,
+// kernels take it from: a (query qi, key kj) pair is visible when both
+// lie inside the sequence and, when causal, the key does not follow the
+// query (a query row at or past S is masked whole, so rows beyond the
+// sequence contribute nothing; the JAX package gets the same by padding
+// dO with zeros); with s = q . k and dp = dO . v,
 //   p  = exp(s * scale - lse)          (0 where not visible),
 //   ds = p * (dp - delta) * scale.
 __device__ __forceinline__ bool bwd_visible(int qi, int kj, int S,
@@ -82,56 +53,59 @@ __device__ __forceinline__ float bwd_ds(float p, float dp, float delta,
   return p * (dp - delta) * scale;
 }
 
-// One tile of the softmax gradient (the body of _bwd_tile) by the rule
-// above, for the scalar kernels: writes p (when P is not null) and ds into
-// padded [kBQ][kBK + 1] shared tiles.
-template <int HD>
-__device__ __forceinline__ void softmax_grad_tile(
-    const float* Qs, const float* dOs, const float* Ks, const float* Vs,
-    const float* lse_s, const float* delta_s, int q0, int k0, int S,
-    float scale, int causal, float* P, float* dS) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][4], dp[4][4];
+// out = A B^T for a warp's 8 rows (A: rows of stride ld from a) against
+// the kBT rows of a tile (B: stride ld from b), scalar f32 FMA. Lane
+// (dq, g) = (lane / 8, lane % 8) sums the D quarter dq of all 8 rows
+// against tile rows g + 8 j: a step of 4 along D reads 8 A float4s and
+// kNJ B float4s for 128 FMAs. Two butterfly exchanges (lanes 16 apart,
+// then 8 apart) add the quarters in a fixed tree, (q0 + q2) + (q1 + q3)
+// or its mirror, whatever the grid. A lane's register row i holds A row
+// i ^ 2 dq, so each exchange keeps the lower registers and sends the upper
+// ones; the lane ends with rows 2 dq and 2 dq + 1 in out[0] and out[1].
+template <typename T, int HD>
+__device__ __forceinline__ void warp_dot(const T* a, const T* b, int ld,
+                                         int lane, float (&out)[2][kNJ]) {
+  using scalar_route::kRows;
+  using scalar_route::ld4;
+  constexpr int kQuarter = HD / 4;
+  const int dq = lane >> 3, g = lane & 7;
+  const int rsw = 2 * dq;
+  const T* ap = a + dq * kQuarter;
+  const T* bp = b + g * ld + dq * kQuarter;
+  float part[kRows][kNJ];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) part[i][j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < kQuarter; d += 4) {
+    float4 bv[kNJ];
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) bv[j] = ld4(bp + 8 * j * ld + d);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float4 av = ld4(ap + (i ^ rsw) * ld + d);
+#pragma unroll
+      for (int j = 0; j < kNJ; ++j) {
+        part[i][j] = fmaf(av.x, bv[j].x, part[i][j]);
+        part[i][j] = fmaf(av.y, bv[j].y, part[i][j]);
+        part[i][j] = fmaf(av.z, bv[j].z, part[i][j]);
+        part[i][j] = fmaf(av.w, bv[j].w, part[i][j]);
+      }
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < HD; ++d) {
-    float qv[4], dov[4], kv[4], vv[4];
+    for (int j = 0; j < kNJ; ++j)
+      part[i][j] += __shfl_xor_sync(0xffffffffu, part[i + 4][j], 16);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = Qs[(ty + 16 * i) * (HD + 1) + d];
-      dov[i] = dOs[(ty + 16 * i) * (HD + 1) + d];
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < kNJ; ++j) {
+      part[i][j] += __shfl_xor_sync(0xffffffffu, part[i + 2][j], 8);
+      out[i][j] = part[i][j];
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      kv[j] = Ks[(tx + 16 * j) * (HD + 1) + d];
-      vv[j] = Vs[(tx + 16 * j) * (HD + 1) + d];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
-      }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int qi = q0 + r;
-    const float l = lse_s[r], dl = delta_s[r];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = tx + 16 * j;
-      const int kj = k0 + c;
-      const float p =
-          bwd_visible(qi, kj, S, causal) ? bwd_p(s[i][j], scale, l) : 0.f;
-      if (P != nullptr) P[r * (kBK + 1) + c] = p;
-      dS[r * (kBK + 1) + c] = bwd_ds(p, dp[i][j], dl, scale);
-    }
-  }
 }
 
 }  // namespace flash_bwd

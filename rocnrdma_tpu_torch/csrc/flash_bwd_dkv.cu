@@ -46,13 +46,35 @@
 //     producer 40 (3 x 168 at entry, one block of 384 threads per SM).
 //
 // Scalar route, f32 at every D and bf16 at D = 16 and 32
-// (flash_bwd_dkv_kernel): one block of 256 threads per (b, kv head, tile
-// of 64 key rows), K and V in f32 shared memory for the whole block; for
-// every query head of the group and every q tile from the diagonal on it
-// loads Q, dO, lse and delta, rebuilds P and dS (softmax_grad_tile) and
-// adds P^T dO into dV and dS^T Q into dK by scalar f32 FMA (full f32
-// products, which the f32 card-vs-CPU parity needs), accumulators in f32
-// registers, outputs written once.
+// (flash_bwd_dkv_kernel), on the CUDA cores in full f32 (fmaf; TF32 would
+// not hold the f32 card-vs-CPU parity). It serves every f32 backward: the
+// f32 training parity (llama3-1b, S 200), the f32 sequence-parallel
+// parity's 512-token shards and the f32 mesh parity.
+//   - What bounds it. At S 2048 the products: 8 * D flops per visible
+//     pair at the 67 TFLOP/s of the f32 FMA units, 0.513 ms for B 1 H 16
+//     causal. At S 200 the chain one warp walks (its keys against every
+//     query of the group from its diagonal on) and the card's fill.
+//   - Rows. A warp owns 8 key rows for its whole walk and keeps their dK
+//     and dV in registers; for each query head of the group in turn it
+//     walks the query tiles from its diagonal on (sums over heads, then
+//     query rows ascending), and the group sum needs no atomics. A block
+//     has 1, 2, 4 or 8 warps on consecutive keys, the most that still give
+//     every SM a block (launch picks it from B, KVH, S and the SM count);
+//     grid.y walks the key tiles from the first, so the blocks with the
+//     longest causal walk launch first.
+//   - Bytes. The block's K and V rows arrive once by cp.async; Q, dO, lse
+//     and delta of 32 query rows reach a 2-stage ring by cp.async, the
+//     next tile's copies started right after the one barrier of each
+//     tile, so they overlap this tile's products. bf16 stays bf16 in
+//     shared memory and widens in registers.
+//   - Products, register-blocked. s^T = K Q^T and dp^T = V dO^T by
+//     warp_dot (flash_bwd_common.cuh): a lane sums a quarter of D for the
+//     warp's 8 keys against 4 queries, 12 float4 reads for 128 FMAs a step
+//     of 4 along D, and two shuffle exchanges add the quarters. p^T
+//     and ds^T come from the shared rule in registers and pass to the
+//     warp's own p and ds slices (__syncwarp); dV += p^T dO and
+//     dK += ds^T Q then read p and ds as float4s along the queries and dO
+//     and Q as float4s along the columns: 24 loads for 256 FMAs at D 128.
 //
 // C interface (bound with ctypes): pointers and the stream are void*,
 // dtype 0 = float32, 1 = bfloat16; flash_bwd_dkv returns
@@ -61,129 +83,223 @@
 
 #include "flash_bwd_common.cuh"
 #include "hopper_tc.cuh"
+#include "scalar_route.cuh"
 
 namespace {
 
 using namespace flash_bwd;
+using namespace scalar_route;
 
-template <int HD>
-constexpr int smem_floats() {
-  // K, V, Q, dO tiles; P and dS tiles; lse and delta.
-  return 2 * kBK * (HD + 1) + 2 * kBQ * (HD + 1) + 2 * kBQ * (kBK + 1) +
-         2 * kBQ;
-}
+// ------------------------------------------------------------ scalar route
 
+// Shared memory of a block of nw warps: its K and V rows and the Q/dO
+// ring (all in T, rows padded by 16 bytes), then the ring's lse and delta
+// and per warp its p and ds slices (f32).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+struct Smem {
+  static constexpr int kLd = HD + 16 / sizeof(T);  // row stride
+  static constexpr int kTile = kBT * kLd;          // one Q or dO tile
+  static constexpr size_t bytes(int nw) {
+    return sizeof(T) * (2 * static_cast<size_t>(kRows * nw * kLd) +
+                        2 * kStages * kTile) +
+           sizeof(float) * (2 * kStages * kBT +
+                            static_cast<size_t>(nw * 2 * kRows * kPStride));
+  }
+};
+
+// One block: the key rows kb .. kb + 8 nw - 1 of kv head bkv (warp w owns
+// kb + 8 w .. kb + 8 w + 7); it walks every query head of the GQA group in
+// turn and, for each, the q tiles from the block's causal diagonal on.
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk,
                      T* __restrict__ dv, int H, int KVH, int S, float scale,
                      int causal) {
-  constexpr int NC = HD / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Ks = smem;                      // [kBK][HD + 1]
-  float* Vs = Ks + kBK * (HD + 1);       // [kBK][HD + 1]
-  float* Qs = Vs + kBK * (HD + 1);       // [kBQ][HD + 1]
-  float* dOs = Qs + kBQ * (HD + 1);      // [kBQ][HD + 1]
-  float* Ps = dOs + kBQ * (HD + 1);      // [kBQ][kBK + 1]
-  float* dSs = Ps + kBQ * (kBK + 1);     // [kBQ][kBK + 1]
-  float* lse_s = dSs + kBQ * (kBK + 1);  // [kBQ]
-  float* delta_s = lse_s + kBQ;          // [kBQ]
+  using L = Smem<T, HD>;
+  constexpr int LD = RowTile<HD>::LD, NCH = RowTile<HD>::NCH;
+  constexpr int LR = RowTile<HD>::LR, PR = RowTile<HD>::PR;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bkv = blockIdx.y;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int nw = blockDim.x >> 5;
+  const int nrows = kRows * nw;
+  T* Ks = reinterpret_cast<T*>(smem_raw);
+  T* Vs = Ks + nrows * L::kLd;
+  T* ring = Vs + nrows * L::kLd;  // [stage][Q, dO]
+  float* rows_f = reinterpret_cast<float*>(ring + 2 * kStages * L::kTile);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Ps = rows_f + 2 * kStages * kBT + warp * 2 * kRows * kPStride;
+  float* dSs = Ps + kRows * kPStride;
+
+  const int bkv = blockIdx.x;
   const int b = bkv / KVH, kvh = bkv % KVH;
   const int group = H / KVH;
-  const int k0 = blockIdx.x * kBK;
+  const int kb = blockIdx.y * nrows;  // grid.y ascending: longest walk first
+  const int nq = (S + kBT - 1) / kBT;
+  const int first_qt = causal ? kb / kBT : 0;
+  const int per_head = nq - first_qt;
+  const int n_it = group * per_head;  // (query head, q tile) items
 
   const size_t kv_off = static_cast<size_t>(bkv) * S * HD;
-  load_tile<T, HD>(Ks, k + kv_off, k0, kBK, S);
-  load_tile<T, HD>(Vs, v + kv_off, k0, kBK, S);
+  copy_rows2<T, HD>(Ks, Vs, k + kv_off, v + kv_off, kb, nrows, S, L::kLd);
+  // Item it's Q, dO, lse and delta into ring stage st.
+  auto load_item = [&](int it, int st) {
+    const int bh = b * H + kvh * group + it / per_head;
+    const int q0 = (first_qt + it % per_head) * kBT;
+    const size_t off = static_cast<size_t>(bh) * S * HD;
+    T* t = ring + st * 2 * L::kTile;
+    copy_rows2<T, HD>(t, t + L::kTile, q + off, dout + off, q0, kBT, S,
+                      L::kLd);
+    float* lt = rows_f + st * 2 * kBT;
+    for (int r = threadIdx.x; r < kBT; r += blockDim.x) {
+      const int g = q0 + r;
+      const size_t src = static_cast<size_t>(bh) * S + (g < S ? g : 0);
+      cp_async4(lt + r, lse + src, g < S);
+      cp_async4(lt + kBT + r, delta + src, g < S);
+    }
+  };
+  load_item(0, 0);
+  cp_async_commit();
 
-  float acc_k[4][NC], acc_v[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
+  // s^T / dp^T lane layout (warp_dot): key rows 2 quarter and
+  // 2 quarter + 1 of the warp's 8, queries qc + 8 j of the tile.
+  const int kw = kb + warp * kRows;  // the warp's first key
+  const bool live = kw < S;
+  const int quarter = lane >> 3, qc = lane & 7;
+  const int vr = lane / LD, vc = lane % LD;
 
-  const int nq = (S + kBQ - 1) / kBQ;
-  const int first_q = causal ? k0 / kBQ : 0;
+  float acc_k[PR][NCH][4], acc_v[PR][NCH][4];
+#pragma unroll
+  for (int i = 0; i < PR; ++i)
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_k[i][ch][e] = acc_v[i][ch][e] = 0.f;
 
-  for (int gi = 0; gi < group; ++gi) {
-    const int bh = b * H + kvh * group + gi;
-    const size_t q_off = static_cast<size_t>(bh) * S * HD;
-    for (int qt = first_q; qt < nq; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // previous tile's Q/dO/P/dS fully consumed
-      load_tile<T, HD>(Qs, q + q_off, q0, kBQ, S);
-      load_tile<T, HD>(dOs, dout + q_off, q0, kBQ, S);
-      load_rows(lse_s, delta_s, lse + static_cast<size_t>(bh) * S,
-                delta + static_cast<size_t>(bh) * S, q0, S);
-      __syncthreads();
-      softmax_grad_tile<HD>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
-                            causal, Ps, dSs);
-      __syncthreads();
-      // dV[kc] += sum_r P[r][kc] * dO[r];  dK[kc] += sum_r dS[r][kc] * Q[r]
-#pragma unroll 4
-      for (int r = 0; r < kBQ; ++r) {
-        float pv[4], sv[4];
+  for (int it = 0; it < n_it; ++it) {
+    // Item it has landed for every thread, and every warp is done with
+    // item it - 1, whose stage the next copies overwrite.
+    cp_async_wait_all();
+    __syncthreads();
+    if (it + 1 < n_it) {
+      load_item(it + 1, (it + 1) & 1);
+      cp_async_commit();
+    }
+    const int q0 = (first_qt + it % per_head) * kBT;
+    if (!live || (causal && q0 + kBT - 1 < kw)) continue;  // warp-uniform
+    const T* Qt = ring + (it & 1) * 2 * L::kTile;
+    const T* dOt = Qt + L::kTile;
+    const float* lse_t = rows_f + (it & 1) * 2 * kBT;
+    const float* delta_t = lse_t + kBT;
+
+    float st[2][kNJ], dpt[2][kNJ];
+    warp_dot<T, HD>(Ks + warp * kRows * L::kLd, Qt, L::kLd, lane, st);
+    warp_dot<T, HD>(Vs + warp * kRows * L::kLd, dOt, L::kLd, lane, dpt);
+
+    // p^T and ds^T by the shared rule, into the warp's slices.
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Ps[r * (kBK + 1) + ty + 16 * i];
-          sv[i] = dSs[r * (kBK + 1) + ty + 16 * i];
-        }
+    for (int j = 0; j < kNJ; ++j) {
+      const int c = qc + 8 * j;
+      const float l = lse_t[c], dl = delta_t[c];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float dov = dOs[r * (HD + 1) + tx + 16 * c];
-          const float qv = Qs[r * (HD + 1) + tx + 16 * c];
+      for (int i = 0; i < 2; ++i) {
+        const int r = 2 * quarter + i;
+        const float p = bwd_visible(q0 + c, kw + r, S, causal)
+                            ? bwd_p(st[i][j], scale, l)
+                            : 0.f;
+        Ps[r * kPStride + c] = p;
+        dSs[r * kPStride + c] = bwd_ds(p, dpt[i][j], dl, scale);
+      }
+    }
+    __syncwarp();
+
+    // dV += p^T dO and dK += ds^T Q, queries in order.
+#pragma unroll 2
+    for (int c = 0; c < kBT; c += 4) {
+      float4 p4[PR], s4[PR];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc_v[i][c] = fmaf(pv[i], dov, acc_v[i][c]);
-            acc_k[i][c] = fmaf(sv[i], qv, acc_k[i][c]);
+      for (int i = 0; i < PR; ++i) {
+        p4[i] = ld4(Ps + (vr + LR * i) * kPStride + c);
+        s4[i] = ld4(dSs + (vr + LR * i) * kPStride + c);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int col = 4 * vc + (HD / NCH) * ch;
+          const float4 ov = ld4(dOt + (c + kk) * L::kLd + col);
+          const float4 qv = ld4(Qt + (c + kk) * L::kLd + col);
+#pragma unroll
+          for (int i = 0; i < PR; ++i) {
+            const float pk = comp(p4[i], kk), sk = comp(s4[i], kk);
+            acc_v[i][ch][0] = fmaf(pk, ov.x, acc_v[i][ch][0]);
+            acc_v[i][ch][1] = fmaf(pk, ov.y, acc_v[i][ch][1]);
+            acc_v[i][ch][2] = fmaf(pk, ov.z, acc_v[i][ch][2]);
+            acc_v[i][ch][3] = fmaf(pk, ov.w, acc_v[i][ch][3]);
+            acc_k[i][ch][0] = fmaf(sk, qv.x, acc_k[i][ch][0]);
+            acc_k[i][ch][1] = fmaf(sk, qv.y, acc_k[i][ch][1]);
+            acc_k[i][ch][2] = fmaf(sk, qv.z, acc_k[i][ch][2]);
+            acc_k[i][ch][3] = fmaf(sk, qv.w, acc_k[i][ch][3]);
           }
         }
       }
     }
   }
+  if (!live) return;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty + 16 * i;
+  for (int i = 0; i < PR; ++i) {
+    const int kj = kw + vr + LR * i;
     if (kj >= S) continue;
     const size_t row = kv_off + static_cast<size_t>(kj) * HD;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      dk[row + tx + 16 * c] = from_f<T>(acc_k[i][c]);
-      dv[row + tx + 16 * c] = from_f<T>(acc_v[i][c]);
+    for (int ch = 0; ch < NCH; ++ch) {
+      const int col = 4 * vc + (HD / NCH) * ch;
+      st4(dk + row + col, acc_k[i][ch][0], acc_k[i][ch][1], acc_k[i][ch][2],
+          acc_k[i][ch][3]);
+      st4(dv + row + col, acc_v[i][ch][0], acc_v[i][ch][1], acc_v[i][ch][2],
+          acc_v[i][ch][3]);
     }
   }
 }
 
+// Warps per block: the most (8, 4, 2, 1) that still give at least one
+// block per SM; grid.y counts key tiles.
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int B, int H, int KVH, int S,
                    float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats<HD>();
+  using L = Smem<T, HD>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dkv_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes(kMaxWarps)));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((S + kBK - 1) / kBK, B * KVH), block(kThreads);
-  flash_bwd_dkv_kernel<T, HD><<<grid, block, smem, stream>>>(
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  int nw = kMaxWarps;
+  long long tiles = 0;
+  for (;; nw >>= 1) {
+    tiles = (S + kRows * nw - 1) / (kRows * nw);
+    if (nw == 1 || static_cast<long long>(B) * KVH * tiles >= sms) break;
+  }
+  if (tiles > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * KVH, static_cast<unsigned>(tiles));
+  flash_bwd_dkv_kernel<T, HD><<<grid, 32 * nw, L::bytes(nw), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<T*>(dk), static_cast<T*>(dv), H, KVH, S, scale, causal);
   return cudaGetLastError();
 }
-
 
 // ------------------------------------------------------ tensor-core route
 
@@ -440,26 +556,22 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 }  // namespace tc
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dk, void* dv, int B, int H, int KVH, int S,
-                     float scale, int causal, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S,
-                           scale, causal, s);
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S,
-                           scale, causal, s);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S,
-                           scale, causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S,
-                            scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
+// The scalar instances: f32 at every D, bf16 at D 16 and 32 (bf16 at D
+// 64 and 128 takes the tensor-core route).
+cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
+                     const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dk, void* dv, int B, int H,
+                     int KVH, int S, float scale, int causal,
+                     cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  switch (dtype * 1000 + D) {
+    case 16: return launch<float, 16>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    case 1016: return launch<bf16, 16>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    case 1032: return launch<bf16, 32>(q, k, v, dout, lse, delta, dk, dv, B, H, KVH, S, scale, causal, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -487,11 +599,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     KVH, S, scale, causal, s);
       break;
     case hopper_tc::kRouteScalar:
-      e = dtype == 0
-              ? dispatch<float>(D, q, k, v, dout, lse, delta, dk, dv, B, H,
-                                KVH, S, scale, causal, s)
-              : dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dk, dv,
-                                        B, H, KVH, S, scale, causal, s);
+      e = dispatch(D, dtype, q, k, v, dout, lse, delta, dk, dv, B, H, KVH,
+                   S, scale, causal, s);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -44,16 +44,31 @@
 //     block of 384 threads per SM).
 //
 // Scalar route, f32 at every D and bf16 at D = 16 and 32
-// (flash_bwd_dq_kernel): one block of 256 threads per (b, h, tile of 64
-// query rows). Q, dO, lse and delta of the tile stay in f32 shared
-// memory; the TPU's sequential kv grid axis becomes a loop inside the
-// block over kv tiles of 64 rows, which stops at the causal diagonal.
-// Each kv tile rebuilds dS (softmax_grad_tile) and adds dS K into the
-// f32 accumulator by scalar f32 FMA (full f32 products, which the f32
-// card-vs-CPU parity needs), 4 query rows x D/16 columns per thread in
-// registers, written once in q's dtype. Keys past S are zero-filled and
-// masked; query rows past S are masked in the tile and never written.
-// Nothing of size S x S is materialised.
+// (flash_bwd_dq_kernel), on the CUDA cores in full f32 (fmaf; TF32 would
+// not hold the f32 card-vs-CPU parity), the shape of K3's scalar route.
+//   - What bounds it. At S 2048 the products: 6 * D flops per visible
+//     pair at the 67 TFLOP/s of the f32 FMA units, 0.385 ms for B 1 H 16
+//     causal. At S 200 the chain one warp walks and the card's fill.
+//   - Rows. A warp owns 8 query rows for the whole kv loop and keeps their
+//     dQ in registers; their lse and delta are read once. A block has 1,
+//     2, 4 or 8 warps, the most that still give every SM a block (launch
+//     picks it from B, H, S and the SM count); its rows are the heads of
+//     one GQA group at consecutive positions, interleaved, so the group
+//     shares each K/V tile of the block. The grid starts with the longest
+//     causal position tiles.
+//   - Bytes. K and V tiles of 32 keys reach shared memory by cp.async into
+//     a 2-stage ring, the next tile's copies started right after the one
+//     barrier of each tile; keys past S arrive as zeros and query rows
+//     past S are masked and never written. A warp skips a tile past its
+//     last row's diagonal.
+//   - Products, register-blocked. s = Q K^T and dp = dO V^T by warp_dot
+//     (flash_bwd_common.cuh): a lane sums a quarter of D for all 8 rows
+//     against 4 keys, 12 float4 reads for 128 FMAs a step of 4 along D,
+//     and two shuffle exchanges add the quarters. ds comes from the
+//     shared rule in registers and passes through the warp's own slice
+//     (__syncwarp); dQ += ds K reads ds as float4s along the keys and K as
+//     float4s along the columns: 12 loads for 128 FMAs at D 128. dQ sums
+//     the keys in order, so it is bitwise independent of the block size.
 //
 // C interface (bound with ctypes): pointers and the stream are void*,
 // dtype 0 = float32, 1 = bfloat16; flash_bwd_dq returns
@@ -62,87 +77,184 @@
 
 #include "flash_bwd_common.cuh"
 #include "hopper_tc.cuh"
+#include "scalar_route.cuh"
 
 namespace {
 
 using namespace flash_bwd;
+using namespace scalar_route;
 
-template <int HD>
-constexpr int smem_floats() {
-  // Q, dO, K, V tiles; the dS tile; lse and delta.
-  return 2 * kBQ * (HD + 1) + 2 * kBK * (HD + 1) + kBQ * (kBK + 1) + 2 * kBQ;
-}
+// ------------------------------------------------------------ scalar route
 
+// Shared memory of a block of nw warps: its Q and dO rows and the K/V
+// ring (all in T, rows padded by 16 bytes), then per warp its ds slice
+// (f32).
 template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+struct Smem {
+  static constexpr int kLd = HD + 16 / sizeof(T);  // row stride
+  static constexpr int kTile = kBT * kLd;          // one K or V tile
+  static constexpr size_t bytes(int nw) {
+    return sizeof(T) * (2 * static_cast<size_t>(kRows * nw * kLd) +
+                        2 * kStages * kTile) +
+           sizeof(float) * static_cast<size_t>(nw * kRows * kPStride);
+  }
+};
+
+// One block: the heads h0 .. h0 + gb - 1 of one kv head (gb = 1 << gb_log2)
+// at npos consecutive positions from p0; block row r is head
+// h0 + r % gb at position p0 + r / gb, and warp w owns rows 8 w .. 8 w + 7.
+template <typename T, int HD>
+__global__ void __launch_bounds__(32 * kMaxWarps, 1)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta, T* __restrict__ dq,
-                    int H, int KVH, int S, float scale, int causal) {
-  constexpr int NC = HD / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;                      // [kBQ][HD + 1]
-  float* dOs = Qs + kBQ * (HD + 1);      // [kBQ][HD + 1]
-  float* Ks = dOs + kBQ * (HD + 1);      // [kBK][HD + 1]
-  float* Vs = Ks + kBK * (HD + 1);       // [kBK][HD + 1]
-  float* dSs = Vs + kBK * (HD + 1);      // [kBQ][kBK + 1]
-  float* lse_s = dSs + kBQ * (kBK + 1);  // [kBQ]
-  float* delta_s = lse_s + kBQ;          // [kBQ]
+                    int H, int KVH, int S, float scale, int causal,
+                    int gb_log2) {
+  using L = Smem<T, HD>;
+  constexpr int kEl = 16 / sizeof(T);
+  constexpr int kChunks = HD / kEl;
+  constexpr int LD = RowTile<HD>::LD, NCH = RowTile<HD>::NCH;
+  constexpr int LR = RowTile<HD>::LR, PR = RowTile<HD>::PR;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * kBQ;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int nw = blockDim.x >> 5;
+  const int nrows = kRows * nw;
+  T* Qs = reinterpret_cast<T*>(smem_raw);
+  T* dOs = Qs + nrows * L::kLd;
+  T* ring = dOs + nrows * L::kLd;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* Ds = reinterpret_cast<float*>(ring + 2 * kStages * L::kTile) +
+              warp * kRows * kPStride;
 
-  const size_t q_off = static_cast<size_t>(bh) * S * HD;
-  const size_t kv_off = static_cast<size_t>(b * KVH + kvh) * S * HD;
-  load_tile<T, HD>(Qs, q + q_off, q0, kBQ, S);
-  load_tile<T, HD>(dOs, dout + q_off, q0, kBQ, S);
-  load_rows(lse_s, delta_s, lse + static_cast<size_t>(bh) * S,
-            delta + static_cast<size_t>(bh) * S, q0, S);
+  const int gb = 1 << gb_log2;
+  const int groups = H >> gb_log2;  // head groups per batch row
+  const int b = blockIdx.x / groups;
+  const int h0 = (blockIdx.x - b * groups) << gb_log2;
+  const int kvh = h0 / (H / KVH);
+  const int npos = nrows >> gb_log2;
+  const int p0 = (gridDim.y - 1 - blockIdx.y) * npos;  // longest first
+  const int p_last = min(S - 1, p0 + npos - 1);
+  const int n_kv = causal ? p_last / kBT + 1 : (S + kBT - 1) / kBT;
 
-  float acc[4][NC];
+  const T* kp = k + static_cast<size_t>(b * KVH + kvh) * S * HD;
+  const T* vp = v + static_cast<size_t>(b * KVH + kvh) * S * HD;
+
+  for (int e = threadIdx.x; e < nrows * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = e % kChunks;
+    const int pos = p0 + (r >> gb_log2);
+    const int h = h0 + (r & (gb - 1));
+    const size_t src =
+        (static_cast<size_t>(b * H + h) * S + (pos < S ? pos : 0)) * HD +
+        c * kEl;
+    cp_async16(Qs + r * L::kLd + c * kEl, q + src, pos < S);
+    cp_async16(dOs + r * L::kLd + c * kEl, dout + src, pos < S);
+  }
+  copy_rows2<T, HD>(ring, ring + L::kTile, kp, vp, 0, kBT, S, L::kLd);
+  cp_async_commit();
+
+  // Positions of this warp's first and last row; a warp whose rows all
+  // lie past S only helps with the copies.
+  const int row0 = warp * kRows;
+  const int pw_lo = p0 + (row0 >> gb_log2);
+  const int pw_hi = min(S - 1, p0 + ((row0 + kRows - 1) >> gb_log2));
+  const bool live = pw_lo < S;
+
+  // s / dp lane layout (warp_dot): rows 2 quarter and 2 quarter + 1 of
+  // the warp, keys qk + 8 j; the rows' lse and delta are read once.
+  const int quarter = lane >> 3, qk = lane & 7;
+  int qpos[2];
+  float lse_r[2], delta_r[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 2 * quarter + i;
+    qpos[i] = p0 + (r >> gb_log2);
+    const size_t g =
+        static_cast<size_t>(b * H + h0 + (r & (gb - 1))) * S + qpos[i];
+    lse_r[i] = qpos[i] < S ? lse[g] : 0.f;
+    delta_r[i] = qpos[i] < S ? delta[g] : 0.f;
+  }
+  const int vr = lane / LD, vc = lane % LD;
 
-  int n_kv = (S + kBK - 1) / kBK;
-  if (causal) n_kv = min(n_kv, (q0 + kBQ - 1) / kBK + 1);
+  float acc[PR][NCH][4];
+#pragma unroll
+  for (int i = 0; i < PR; ++i)
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][ch][e] = 0.f;
 
   for (int kt = 0; kt < n_kv; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // previous tile's K/V/dS fully consumed
-    load_tile<T, HD>(Ks, k + kv_off, k0, kBK, S);
-    load_tile<T, HD>(Vs, v + kv_off, k0, kBK, S);
+    // Tile kt has landed for every thread, and every warp is done with
+    // tile kt - 1, whose stage the next copies overwrite.
+    cp_async_wait_all();
     __syncthreads();
-    softmax_grad_tile<HD>(Qs, dOs, Ks, Vs, lse_s, delta_s, q0, k0, S, scale,
-                          causal, nullptr, dSs);
-    __syncthreads();
-    // dQ[r] += sum_c dS[r][c] * K[c]
-#pragma unroll 4
-    for (int c = 0; c < kBK; ++c) {
-      float sv[4];
+    if (kt + 1 < n_kv) {
+      T* next = ring + ((kt + 1) & 1) * 2 * L::kTile;
+      copy_rows2<T, HD>(next, next + L::kTile, kp, vp, (kt + 1) * kBT, kBT,
+                        S, L::kLd);
+      cp_async_commit();
+    }
+    const int k0 = kt * kBT;
+    if (!live || (causal && k0 > pw_hi)) continue;  // warp-uniform
+    const T* Ks = ring + (kt & 1) * 2 * L::kTile;
+    const T* Vs = Ks + L::kTile;
+
+    float s[2][kNJ], dp[2][kNJ];
+    warp_dot<T, HD>(Qs + row0 * L::kLd, Ks, L::kLd, lane, s);
+    warp_dot<T, HD>(dOs + row0 * L::kLd, Vs, L::kLd, lane, dp);
+
+    // ds by the shared rule, into the warp's slice.
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * (kBK + 1) + c];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int cc = 0; cc < NC; ++cc) {
-        const float kv = Ks[c * (HD + 1) + tx + 16 * cc];
+      for (int j = 0; j < kNJ; ++j) {
+        const float p = bwd_visible(qpos[i], k0 + qk + 8 * j, S, causal)
+                            ? bwd_p(s[i][j], scale, lse_r[i])
+                            : 0.f;
+        Ds[(2 * quarter + i) * kPStride + qk + 8 * j] =
+            bwd_ds(p, dp[i][j], delta_r[i], scale);
+      }
+    __syncwarp();
+
+    // dQ += ds K, keys in order.
+#pragma unroll 2
+    for (int c = 0; c < kBT; c += 4) {
+      float4 ds4[PR];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][cc] = fmaf(sv[i], kv, acc[i][cc]);
+      for (int i = 0; i < PR; ++i)
+        ds4[i] = ld4(Ds + (vr + LR * i) * kPStride + c);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const float4 kv =
+              ld4(Ks + (c + kk) * L::kLd + 4 * vc + (HD / NCH) * ch);
+#pragma unroll
+          for (int i = 0; i < PR; ++i) {
+            const float dsk = comp(ds4[i], kk);
+            acc[i][ch][0] = fmaf(dsk, kv.x, acc[i][ch][0]);
+            acc[i][ch][1] = fmaf(dsk, kv.y, acc[i][ch][1]);
+            acc[i][ch][2] = fmaf(dsk, kv.z, acc[i][ch][2]);
+            acc[i][ch][3] = fmaf(dsk, kv.w, acc[i][ch][3]);
+          }
+        }
       }
     }
   }
+  if (!live) return;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty + 16 * i;
-    if (qi >= S) continue;
-    const size_t row = q_off + static_cast<size_t>(qi) * HD;
+  for (int i = 0; i < PR; ++i) {
+    const int r = row0 + vr + LR * i;
+    const int pos = p0 + (r >> gb_log2);
+    if (pos >= S) continue;
+    T* row = dq + (static_cast<size_t>(b * H + h0 + (r & (gb - 1))) * S +
+                   pos) * HD;
 #pragma unroll
-    for (int cc = 0; cc < NC; ++cc) dq[row + tx + 16 * cc] = from_f<T>(acc[i][cc]);
+    for (int ch = 0; ch < NCH; ++ch)
+      st4(row + 4 * vc + (HD / NCH) * ch, acc[i][ch][0], acc[i][ch][1],
+          acc[i][ch][2], acc[i][ch][3]);
   }
 }
 
@@ -151,21 +263,27 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int H, int KVH, int S, float scale,
                    int causal, cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * smem_floats<HD>();
+  using L = Smem<T, HD>;
   static bool configured = false;
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(
         flash_bwd_dq_kernel<T, HD>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(L::bytes(kMaxWarps)));
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H), block(kThreads);
-  flash_bwd_dq_kernel<T, HD><<<grid, block, smem, stream>>>(
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
+  if (e != cudaSuccess) return e;
+  const QueryGrid g = query_grid(B, H, KVH, S, sms);
+  if (g.grid.y > 65535) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel<T, HD><<<g.grid, 32 * g.warps, L::bytes(g.warps),
+                               stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, KVH, S, scale, causal);
+      static_cast<T*>(dq), H, KVH, S, scale, causal, g.gb_log2);
   return cudaGetLastError();
 }
 
@@ -396,26 +514,21 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 
-template <typename T>
-cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     void* dq, int B, int H, int KVH, int S, float scale,
-                     int causal, cudaStream_t s) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale,
-                           causal, s);
-    case 32:
-      return launch<T, 32>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale,
-                           causal, s);
-    case 64:
-      return launch<T, 64>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale,
-                           causal, s);
-    case 128:
-      return launch<T, 128>(q, k, v, dout, lse, delta, dq, B, H, KVH, S,
-                            scale, causal, s);
-    default:
-      return cudaErrorInvalidValue;
+// The scalar instances: f32 at every D, bf16 at D 16 and 32 (bf16 at D
+// 64 and 128 takes the tensor-core route).
+cudaError_t dispatch(int D, int dtype, const void* q, const void* k,
+                     const void* v, const void* dout, const void* lse,
+                     const void* delta, void* dq, int B, int H, int KVH,
+                     int S, float scale, int causal, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  switch (dtype * 1000 + D) {
+    case 16: return launch<float, 16>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    case 32: return launch<float, 32>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    case 64: return launch<float, 64>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    case 128: return launch<float, 128>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    case 1016: return launch<bf16, 16>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    case 1032: return launch<bf16, 32>(q, k, v, dout, lse, delta, dq, B, H, KVH, S, scale, causal, s);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -443,11 +556,8 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                                     KVH, S, scale, causal, s);
       break;
     case hopper_tc::kRouteScalar:
-      e = dtype == 0
-              ? dispatch<float>(D, q, k, v, dout, lse, delta, dq, B, H, KVH,
-                                S, scale, causal, s)
-              : dispatch<__nv_bfloat16>(D, q, k, v, dout, lse, delta, dq, B,
-                                        H, KVH, S, scale, causal, s);
+      e = dispatch(D, dtype, q, k, v, dout, lse, delta, dq, B, H, KVH, S,
+                   scale, causal, s);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -100,9 +100,8 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <numeric>
-
 #include "hopper_tc.cuh"
+#include "scalar_route.cuh"
 
 namespace {
 
@@ -110,10 +109,9 @@ constexpr float kNegInf = -1e30f;
 
 // ----------------------------------------------------------- scalar route
 
+using namespace scalar_route;
+
 constexpr int kBK = 32;        // keys per kv tile
-constexpr int kRows = 8;       // query rows per warp
-constexpr int kMaxWarps = 8;   // warps per block at most
-constexpr int kStages = 2;     // K/V ring depth
 constexpr int kPStride = kBK + 8;  // P row stride in floats: 8 banks apart
 
 // Shared memory of a block of nw warps: the Q rows, the K/V ring (both in
@@ -132,67 +130,6 @@ struct Smem {
   }
 };
 
-// One 16-byte copy into shared memory; with `valid` false the 16 bytes
-// are zeros and nothing is read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four consecutive elements of shared memory as f32 (bf16 widens exactly).
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16),
-                     __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16),
-                     __uint_as_float(u.y & 0xffff0000u));
-}
-
-__device__ __forceinline__ void st4(float* p, float a, float b, float c,
-                                    float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
-}
-__device__ __forceinline__ void st4(__nv_bfloat16* p, float a, float b,
-                                    float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  u.x = *reinterpret_cast<const uint32_t*>(&lo);
-  u.y = *reinterpret_cast<const uint32_t*>(&hi);
-  *reinterpret_cast<uint2*>(p) = u;
-}
-
-__device__ __forceinline__ float comp(const float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
-// Keys k0 .. k0 + kBK - 1 of K and V into one ring stage.
-template <typename T, int HD>
-__device__ __forceinline__ void load_kv(T* ks, const T* kp, const T* vp,
-                                        int k0, int S) {
-  using L = Smem<T, HD>;
-  constexpr int kEl = 16 / sizeof(T);
-  for (int e = threadIdx.x; e < kBK * L::kChunks; e += blockDim.x) {
-    const int r = e / L::kChunks, c = e % L::kChunks;  // powers of two
-    const int g = k0 + r;
-    const size_t src = static_cast<size_t>(g < S ? g : 0) * HD + c * kEl;
-    cp_async16(ks + r * L::kLd + c * kEl, kp + src, g < S);
-    cp_async16(ks + L::kTile + r * L::kLd + c * kEl, vp + src, g < S);
-  }
-}
-
 // One block: the heads h0 .. h0 + gb - 1 of one kv head (gb = 1 << gb_log2)
 // at npos consecutive positions from p0; block row r is head
 // h0 + r % gb at position p0 + r / gb, and warp w owns rows 8 w .. 8 w + 7.
@@ -204,12 +141,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  int causal, int gb_log2) {
   using L = Smem<T, HD>;
   constexpr int kEl = 16 / sizeof(T);
-  // p.v lane layout: LR row groups x LD column groups; a lane holds rows
-  // vr + LR i (i < PR) and columns 4 vc + (HD / NCH) ch (ch < NCH).
-  constexpr int LD = HD / 4 < 16 ? HD / 4 : 16;
-  constexpr int NCH = HD / (4 * LD);
-  constexpr int LR = 32 / LD;
-  constexpr int PR = kRows / LR;
+  // p.v lane layout (RowTile).
+  constexpr int LD = RowTile<HD>::LD, NCH = RowTile<HD>::NCH;
+  constexpr int LR = RowTile<HD>::LR, PR = RowTile<HD>::PR;
 
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const int nw = blockDim.x >> 5;
@@ -244,7 +178,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         c * kEl;
     cp_async16(Qs + r * L::kLd + c * kEl, q + src, pos < S);
   }
-  load_kv<T, HD>(ring, kp, vp, 0, S);
+  copy_rows2<T, HD>(ring, ring + L::kTile, kp, vp, 0, kBK, S, L::kLd);
   cp_async_commit();
 
   // Positions of this warp's first and last row; a warp whose rows all
@@ -277,8 +211,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_wait_all();
     __syncthreads();
     if (kt + 1 < n_kv) {
-      load_kv<T, HD>(ring + ((kt + 1) & 1) * 2 * L::kTile, kp, vp,
-                     (kt + 1) * kBK, S);
+      T* next = ring + ((kt + 1) & 1) * 2 * L::kTile;
+      copy_rows2<T, HD>(next, next + L::kTile, kp, vp, (kt + 1) * kBK, kBK,
+                        S, L::kLd);
       cp_async_commit();
     }
     const int k0 = kt * kBK;
@@ -404,28 +339,6 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Warps per block: the most (8, 4, 2, 1) that still give at least one
-// block per SM; the rows of a block take gb = gcd(group, rows) heads of
-// one GQA group.
-struct ScalarGrid {
-  int warps, gb_log2;
-  dim3 grid;
-};
-
-ScalarGrid scalar_grid(int B, int H, int KVH, int S, int sms) {
-  ScalarGrid g{};
-  for (int nw = kMaxWarps;; nw >>= 1) {
-    const int gb = std::gcd(H / KVH, kRows * nw);
-    const int npos = kRows * nw / gb;
-    const long long tiles = (S + npos - 1) / npos;
-    g.warps = nw;
-    g.gb_log2 = __builtin_ctz(gb);
-    g.grid = dim3(B * H / gb, static_cast<unsigned>(tiles));
-    if (nw == 1 || static_cast<long long>(B) * (H / gb) * tiles >= sms)
-      return g;
-  }
-}
-
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int H, int KVH, int S, float scale,
@@ -439,12 +352,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int sms = 0;
+  cudaError_t e = sm_count(&sms);
   if (e != cudaSuccess) return e;
-  const ScalarGrid g = scalar_grid(B, H, KVH, S, sms);
+  const QueryGrid g = query_grid(B, H, KVH, S, sms);
   if (g.grid.y > 65535) return cudaErrorInvalidValue;
   flash_fwd_kernel<T, HD><<<g.grid, 32 * g.warps, L::bytes(g.warps),
                             stream>>>(

@@ -83,13 +83,17 @@ def test_rmsnorm_bwd_keeps_bf16_dx_and_f32_dw():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("b,h,kvh,s,d", [(2, 4, 2, 96, 32),
                                          (1, 4, 4, 37, 16),
-                                         (1, 2, 1, 37, 64)])
+                                         (1, 2, 1, 37, 64),
+                                         (1, 4, 2, 200, 128),
+                                         (1, 8, 2, 33, 32)])
 def test_flash_bwd_matches_jax_pallas(causal, b, h, kvh, s, d):
     """The port's plain backward and shard_grads against the JAX
     ``flash_attention_shard_grads`` through its Pallas dK/dV and dQ
     kernels in interpret mode (blocks of 64: S = 96 pads to 128 and 37
     is one short block), on the same out/lse from the JAX forward; GQA
-    group sums included."""
+    group sums included. S 200 at D 128 is the f32 training parity's
+    attention (four blocks, the last ragged); S 33 at group 4 is one
+    past the scalar routes' 32-row tile."""
     q, k, v, do = (_normal(10 + i, shp) for i, shp in enumerate(
         [(b, h, s, d), (b, kvh, s, d), (b, kvh, s, d), (b, h, s, d)]))
     jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))

@@ -21,10 +21,10 @@ at groups 1, 2 and 4, and on the transposed views the model passes,
 within the same bf16 tolerance: the route rounds P and dS to bf16 before
 their second product, which the plain versions keep in f32, and these
 roundings stay inside it. f32, and bf16 at D 16 and 32, take the scalar
-route; K3's scalar route is checked at the edges of its 8-row warps and
-32-key tiles, twice for bitwise repeatability, and a batch row of a
-larger call (another block size) against the call on that row alone,
-bitwise.
+route; the scalar routes of K3, K4 and K5 are checked at the edges of
+their 8-row warps and 32-row tiles, twice for bitwise repeatability, and
+a batch row of a larger call (another block size) against the call on
+that row alone, bitwise.
 """
 
 import pytest
@@ -267,6 +267,73 @@ def test_flash_scalar_route_rows_independent_of_the_grid(cuda, dtype, d, s):
                                         causal=causal)
         torch.cuda.synchronize()
         assert torch.equal(out[2:3], one) and torch.equal(lse[2:3], lse1)
+
+
+def _bwd_inputs(cuda, b, h, kvh, s, d, dtype, seed, causal):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, kvh, s, d, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    out, lse = flash_attention_lse_reference(q, k, v, causal=causal)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("d,dtype", [(16, torch.float32), (32, torch.float32),
+                                     (64, torch.float32),
+                                     (128, torch.float32),
+                                     (16, torch.bfloat16),
+                                     (32, torch.bfloat16)])
+@pytest.mark.parametrize("s", [1, 7, 8, 9, 31, 32, 33, 63, 64, 65, 200])
+def test_flash_bwd_scalar_route_at_tile_edges(cuda, s, d, dtype, group,
+                                              causal):
+    """K4's and K5's scalar routes (f32 at every D, bf16 at D 16 and 32)
+    at the edges of their 8-row warps and 32-row tiles and at the
+    training parity's S 200, at groups 1, 2 and 4: one launch of each,
+    dQ, dK and dV against the plain version, and a second call bitwise
+    equal."""
+    assert kernel_route("flash_bwd_dkv", d, dtype) == "scalar"
+    assert kernel_route("flash_bwd_dq", d, dtype) == "scalar"
+    kvh = 2
+    args = _bwd_inputs(cuda, 2, kvh * group, kvh, s, d, dtype,
+                       s * 37 + d + group, causal)
+    _native.reset_launches()
+    got = flash_attention_shard_grads(*args, causal)
+    torch.cuda.synchronize()
+    assert _native.launches()["flash_bwd_dq"] == 1
+    assert _native.launches()["flash_bwd_dkv"] == 1
+    want = flash_attention_bwd_reference(*args, causal)
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    for name, gt, wt in zip(("dq", "dk", "dv"), got, want):
+        assert gt.dtype == dtype and gt.shape == wt.shape, name
+        assert torch.isfinite(gt.float()).all(), name
+        torch.testing.assert_close(gt.float(), wt.float(), rtol=tol,
+                                   atol=tol, msg=name)
+    again = flash_attention_shard_grads(*args, causal)
+    for name, a, g in zip(("dq", "dk", "dv"), again, got):
+        assert torch.equal(a, g), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 128),
+                                     (torch.bfloat16, 32)])
+@pytest.mark.parametrize("s", [200, 512, 2048])
+def test_flash_bwd_scalar_route_rows_independent_of_the_grid(cuda, dtype, d,
+                                                             s):
+    """K4 and K5 pick their block size (8 to 64 rows) and, in K5, how
+    many heads of a group share a block from B, H and S; each row's sums
+    run in the same order whatever they pick, so batch row 2 of a B 4
+    call is bitwise the B 1 call on that row alone."""
+    for causal in (True, False):
+        args = _bwd_inputs(cuda, 4, 16, 8, s, d, dtype, s + d, causal)
+        got = flash_attention_shard_grads(*args, causal)
+        one = flash_attention_shard_grads(*(t[2:3] for t in args), causal)
+        torch.cuda.synchronize()
+        for name, a, g in zip(("dq", "dk", "dv"), got, one):
+            assert torch.equal(a[2:3], g), (name, causal)
 
 
 @pytest.mark.gpu

@@ -16,8 +16,9 @@ script sits in), builds its kernels and prints one JSON line:
   ``torch.Generator(device="cuda")`` seeded 21, out and lse from the
   plain forward (``flash_attention_lse_reference``, the same code in
   every tree of the port), delta = rowsum(dO * out);
-- the sha256 of K5's dQ in f32 (B 1, H 16, KVH 8, S 1000, D 128,
-  causal, seed 24), which takes the scalar route in every tree;
+- the sha256 of K5's dQ and of K4's dK and dV in f32 (B 1, H 16, KVH 8,
+  S 1000, D 128, causal, seed 24), which take the scalar route in every
+  tree;
 - the instance K5 launches at each of the two cases (``kernel_route``;
   "scalar" in a tree whose K5 had no other);
 - the sha256 of K3's f32 out and lse (``flash_attention_lse``, the
@@ -27,6 +28,9 @@ script sits in), builds its kernels and prints one JSON line:
   D 128: causal at S 85, 225, 256 and 2048 (the serving prompts and the
   f32 training shape), full at S 512 (the ring's past shard in the f32
   sequence-parallel parity);
+- the device ms of one call of K4 and of K5 in f32 at B 1, H 16, KVH 8,
+  D 128: causal at S 200 (the f32 training parity) and 2048, full at
+  S 512 (the f32 sequence-parallel parity's past shard);
 - the device ms of one call of K3 (``flash_attention_lse``) at path
   (a)'s and path (c)'s shapes, and of K4 (``flash_bwd_dkv``) and K5 at
   path (c)'s, each from CUDA-graph replay of calls cycling through
@@ -115,9 +119,9 @@ def main() -> int:
             return "scalar"
         return kernel_route("flash_bwd_dq", d, dtype)
 
-    def backward_inputs(b, h, kvh, s, d, seed, dtype):
+    def backward_inputs(b, h, kvh, s, d, seed, dtype, causal=True):
         q, k, v, do = inputs(b, h, kvh, s, d, seed, dtype)
-        out, lse = flash_attention_lse_reference(q, k, v, causal=True)
+        out, lse = flash_attention_lse_reference(q, k, v, causal=causal)
         delta = (do.float() * out.float()).sum(-1, keepdim=True)
         return q, k, v, do, lse, delta
 
@@ -128,6 +132,7 @@ def main() -> int:
     dk, dv = flash_bwd_dkv(*bwd, causal=True)
     bwd32 = backward_inputs(1, 16, 8, 1000, 128, 24, torch.float32)
     dq32 = flash_bwd_dq(*bwd32, causal=True)
+    dk32, dv32 = flash_bwd_dkv(*bwd32, causal=True)
     torch.cuda.synchronize()
     qa, ka, va, _ = inputs(4, 32, 8, 512, 128, 1)
     q3, k3, v3, _ = inputs(1, 16, 8, 225, 128, 20, torch.float32)
@@ -138,6 +143,14 @@ def main() -> int:
         f = inputs(1, 16, 8, s, 128, s, torch.float32)[:3]
         k3_f32_ms[f"s{s}_{'causal' if causal else 'full'}"] = time_ms(
             lambda *a, c=causal: flash_attention_lse(*a, causal=c), f)
+    k45_f32_ms = {}
+    for s, causal in ((200, True), (512, False), (2048, True)):
+        f = backward_inputs(1, 16, 8, s, 128, s, torch.float32, causal)
+        key = f"s{s}_{'causal' if causal else 'full'}"
+        k45_f32_ms["k4_" + key] = time_ms(
+            lambda *a, c=causal: flash_bwd_dkv(*a, causal=c), f, iters=4)
+        k45_f32_ms["k5_" + key] = time_ms(
+            lambda *a, c=causal: flash_bwd_dq(*a, causal=c), f, iters=4)
     res = {
         "root": str(Path(args.root).resolve()),
         "package": str(Path(_native.__file__).resolve().parents[1]),
@@ -151,9 +164,10 @@ def main() -> int:
         "k5_f32_case": {"shape": [1, 16, 8, 1000, 128], "dtype": "float32",
                         "causal": True,
                         "dq_route": dq_route(128, torch.float32)},
-        "dq_f32_sha256": sha(dq32), "lse_f32_sha256": sha(bwd32[4]),
+        "dq_f32_sha256": sha(dq32), "dk_f32_sha256": sha(dk32),
+        "dv_f32_sha256": sha(dv32), "lse_f32_sha256": sha(bwd32[4]),
         "k3_f32_out_sha256": sha(o3), "k3_f32_lse_sha256": sha(l3),
-        "k3_f32_ms": k3_f32_ms,
+        "k3_f32_ms": k3_f32_ms, "k45_f32_ms": k45_f32_ms,
         "k3_ms_path_a": time_ms(
             lambda *a: flash_attention_lse(*a, causal=True), (qa, ka, va)),
         "k3_ms_path_c": time_ms(
