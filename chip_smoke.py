@@ -44,7 +44,11 @@ the tensor-core route.
   layers, batch 2, seq 2048 (the shape of
   ``examples/train_single_chip.py``), one warm step then 4 timed steps
   on one batch — step ms, tokens/s, model-FLOP share of the bf16 peak,
-  device busy vs wall, peak memory, losses, launch counts;
+  device busy vs wall, peak memory, losses, launch counts; then the
+  same under ``remat_policy="dots"`` (the projections' outputs kept,
+  the rest recomputed): each step's loss equal to (c)'s, K1-K5 launches
+  per step (c)'s, the GEMM launches and device time per step, peak
+  memory;
 - training parity: llama3-1b in f32, batch 1, seq 200, loss and every
   parameter's gradient on the card (kernels) against the CPU (plain
   versions), then the parameters after one AdamW step; the card step's
@@ -124,7 +128,15 @@ the tensor-core route.
   cuda:0,cuda:0`` as path (d)'s two rank processes (one warm step, 1
   timed): digests equal on both ranks every step, (d)'s staged bytes,
   launches 2 x (c)'s, first losses within 2e-2 relative of (d)'s; the
-  grads / sync / apply split. The kernel phases time K3, K4 and K5 at
+  grads / sync / apply split. Then those two slices with
+  ``--per-layer`` and ``--elastic-dir`` under the coordinator, run as
+  path (f) runs, 2 steps, rank 1 SIGKILLed at its first bucket push of
+  step 2 and started again: digests after every step equal to the
+  fused two slices', one recovery, launches per attempt two positions'
+  of (c)'s, the checkpoint file the size of (f)'s (the meshed file is
+  the single-device one); rebuild, restore and save ms, rank 1's start
+  to rejoin. The elastic paths write every thread's stack every 30 s
+  of a resume into the phase's line. The kernel phases time K3, K4 and K5 at
   (i)'s local shape, K3's scalar f32 route at (b)'s and (h)'s shortest
   and longest prompts (S 85 and 225), and K4's and K5's scalar f32
   routes at the training parity's shape (B1 H16 KVH8 S200, causal), the
@@ -355,6 +367,10 @@ def profile_steps(step, n: int, ranges=()) -> dict:
         return sum(e.self_device_time_total for e in kern
                    if match(e.key)) / n / 1e3
 
+    def gemm(key: str) -> bool:
+        return any(t in key.lower() for t in ("nvjet", "gemm", "cutlass",
+                                               "xmma"))
+
     ours = {name: ms_of(lambda key, nm=name: nm in key)
             for name in _native.KERNELS}
     return {"profiled_wall_ms": wall, "device_ms": busy,
@@ -364,9 +380,9 @@ def profile_steps(step, n: int, ranges=()) -> dict:
             "kernels": sum(e.count for e in kern) / n,
             "annotations_not_counted": sorted(notes),
             "ported_kernel_ms": ours,
-            "library_gemm_ms": ms_of(lambda key: any(
-                t in key.lower() for t in ("nvjet", "gemm", "cutlass",
-                                           "xmma"))),
+            "library_gemm_ms": ms_of(gemm),
+            "library_gemm_calls": sum(e.count for e in kern
+                                      if gemm(e.key)) / n,
             "foreach_ms": ms_of(lambda key: "multi_tensor_apply" in key),
             "top": [{"kernel": e.key[:90],
                      "ms": e.self_device_time_total / n / 1e3,
@@ -1231,10 +1247,11 @@ def model_flops(cfg, b: int, s: int) -> float:
     return 6.0 * matmul_params * b * s + attn
 
 
-def phase_train_1b() -> dict:
+def phase_train_1b(policy: str = "full") -> dict:
+    """Path (c) under the remat ``policy``."""
     cfg = llama.LLAMA3_1B
     b, s, steps = 2, 2048, 4
-    trainer = Trainer(cfg, remat=True, device="cuda")
+    trainer = Trainer(cfg, remat=True, remat_policy=policy, device="cuda")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s + 1))).cuda()
     torch.cuda.reset_peak_memory_stats()
@@ -1268,7 +1285,8 @@ def phase_train_1b() -> dict:
     flops = model_flops(cfg, b, s)
     del trainer
     torch.cuda.empty_cache()
-    return {"config": cfg.name + "/bf16/remat", "batch": b, "seq": s,
+    return {"config": cfg.name + "/bf16/remat", "remat_policy": policy,
+            "batch": b, "seq": s,
             "lr": 3e-4, "weight_decay": 0.1, "warm_step_s": warm_s,
             "step_ms": step_ms, "step_ms_mean": mean_ms,
             "tokens_per_s": b * s / (mean_ms / 1e3),
@@ -1279,6 +1297,33 @@ def phase_train_1b() -> dict:
             "peak_mem_gb": peak / 1e9, "losses": losses,
             "launches": launches, "launches_per_step": per_step,
             "profiled_step": prof}
+
+
+def phase_train_1b_dots(c: dict) -> dict:
+    """Path (c) with ``remat_policy="dots"``: its model, weights and
+    batch, one warm step then 4 timed. Gates: path (c)'s, and each
+    step's loss equal to (c)'s in this run (bitwise where the card
+    repeats its GEMMs bit for bit, within 1e-5 relative otherwise; the
+    policy moves which products are kept, not what they compute), K1-K5
+    launches per step equal to (c)'s."""
+    out = phase_train_1b("dots")
+    n = len(out["losses"])
+    rel = max(abs(a - b) / abs(b) for a, b in zip(out["losses"],
+                                                   c["losses"][:n]))
+    require(rel <= 1e-5, f"path (c) dots losses {out['losses']} vs "
+            f"(c)'s {c['losses'][:n]}")
+    require(out["launches_per_step"] == c["launches_per_step"],
+            f"path (c) dots launches {out['launches_per_step']} != (c)'s")
+    prof, cprof = out["profiled_step"], c["profiled_step"]
+    return {**out, "path_c_losses": c["losses"][:n],
+            "losses_equal_path_c_bitwise": out["losses"] == c["losses"][:n],
+            "loss_max_rel_diff_vs_c": rel,
+            "path_c_step_ms_mean": c["step_ms_mean"],
+            "path_c_peak_mem_gb": c["peak_mem_gb"],
+            "kernels_per_step_vs_c": [prof["kernels"], cprof["kernels"]],
+            "gemm_calls_per_step_vs_c": [prof.get("library_gemm_calls"),
+                                         cprof.get("library_gemm_calls")],
+            "device_ms_vs_c": [prof["device_ms"], cprof["device_ms"]]}
 
 
 def step_agreement(what: str, got, want, lr: float) -> dict:
@@ -1914,32 +1959,68 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     return res
 
 
-# Path (f)'s ranks: the example behind a sync that SIGKILLs its process
-# at the given call (0: never), after writing the moment to its standard
-# output, and that first sleeps LATE_S seconds in call LATE_AT (0:
+# The elastic paths' ranks: the example behind a sync that counts its
+# calls, or with the per-layer sync its bucket pushes, SIGKILLs its
+# process at the given count (0: never), after writing the moment to its
+# standard output, and first sleeps LATE_S seconds at count LATE_AT (0:
 # never). SIGUSR1 dumps every thread's stack to its standard error.
+# With TDR_RESUME_STACKS set, every thread's stack is appended to
+# <TDR_RESUME_STACKS>.<pid> every 30 s while the trainer resumes.
 KILL_SWITCH = r"""
 import faulthandler, json, os, runpy, signal, sys, time
 from rocnrdma_tpu_torch.collectives import torch_shim
+from rocnrdma_tpu_torch.parallel import trainer as trainer_mod
 
 faulthandler.register(signal.SIGUSR1, all_threads=True)
+STACKS = os.environ.get("TDR_RESUME_STACKS")
+if STACKS:
+    resume = trainer_mod.Trainer._resume
+
+    def stacked_resume(self, exc, attempt):
+        with open(f"{STACKS}.{os.getpid()}", "a") as f:
+            f.write(f"resume attempt {attempt} at {time.monotonic()}: "
+                    f"{str(exc)[:300]}\n")
+            f.flush()
+            faulthandler.dump_traceback_later(30, repeat=True, file=f)
+            try:
+                return resume(self, exc, attempt)
+            finally:
+                faulthandler.cancel_dump_traceback_later()
+                f.write(f"resumed at {time.monotonic()}\n")
+
+    trainer_mod.Trainer._resume = stacked_resume
 
 DIE_AT, LATE_AT, LATE_S = int(sys.argv[1]), int(sys.argv[2]), float(
     sys.argv[3])
 
 
 class KillSwitch(torch_shim.CrossSliceAllReduce):
-    calls = 0
+    ticks = 0
 
-    def __call__(self, tree):
-        KillSwitch.calls += 1
-        if KillSwitch.calls == LATE_AT:
+    @staticmethod
+    def tick():
+        KillSwitch.ticks += 1
+        if KillSwitch.ticks == LATE_AT:
             time.sleep(LATE_S)
-        if KillSwitch.calls == DIE_AT:
+        if KillSwitch.ticks == DIE_AT:
             print(json.dumps({"killed_monotonic": time.monotonic()}),
                   flush=True)
             os.kill(os.getpid(), signal.SIGKILL)
+
+    def __call__(self, tree):
+        KillSwitch.tick()
         return super().__call__(tree)
+
+    def start_layered(self, plan):
+        pending = super().start_layered(plan)
+        push = pending.push
+
+        def counted(idx, leaves):
+            KillSwitch.tick()
+            push(idx, leaves)
+
+        pending.push = counted
+        return pending
 
 
 torch_shim.CrossSliceAllReduce = KillSwitch
@@ -1987,25 +2068,30 @@ def stop(proc) -> None:
             proc.wait()
 
 
-def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
-    """Path (f)'s ranks: rank 0 and rank 1 (behind ``KILL_SWITCH``);
-    once rank 1 is dead (it must die of SIGKILL), rank 1 again. With
-    ``late_s``, rank 0 enters the sync call rank 1 dies in that many
-    seconds late. Each incarnation's standard output, and the monotonic
-    moments rank 1 was seen dead and started again."""
-    args = two_slice_args(ELASTIC_STEPS) + [
+def run_elastic(addr: str, root: str, late_s: float = 0.0, env=None,
+                steps: int = ELASTIC_STEPS, die_at: int = ELASTIC_DIE_AT,
+                extra=(), what: str = "path (f)") -> tuple:
+    """An elastic path's ranks, ``steps`` steps of the example with
+    ``extra`` arguments: rank 0 and rank 1 (behind ``KILL_SWITCH``,
+    dying at its ``die_at``-th sync call or bucket push); once rank 1 is
+    dead (it must die of SIGKILL), rank 1 again. With ``late_s``, rank 0
+    enters the sync call rank 1 dies in that many seconds late; ``env``
+    adds to the ranks' environment. Each incarnation's standard output,
+    and the monotonic moments rank 1 was seen dead and started again."""
+    args = two_slice_args(steps) + list(extra) + [
         "--controller", addr, "--elastic-dir", os.path.join(root, "ck")]
     env = {**os.environ, "TDR_RING_TIMEOUT_MS": "120000",
-           "TDR_POSTMORTEM_DIR": os.path.join(root, "postmortem")}
+           "TDR_POSTMORTEM_DIR": os.path.join(root, "postmortem"),
+           **(env or {})}
     files = []
 
-    def spawn(rank: int, die_at: int, late: float = 0.0):
+    def spawn(rank: int, die: int, late: float = 0.0):
         out, err = (open(os.path.join(root, f"r{rank}.{len(files)}.{k}"),
                          "w+") for k in ("out", "err"))
         files.append((out, err))
         return subprocess.Popen(
-            [sys.executable, "-c", KILL_SWITCH, str(die_at),
-             str(ELASTIC_DIE_AT if late else 0), str(late)] + args
+            [sys.executable, "-c", KILL_SWITCH, str(die),
+             str(die_at if late else 0), str(late)] + args
             + ["--rank", str(rank)], cwd=REPO, stdout=out, stderr=err,
             env=env)
 
@@ -2017,21 +2103,21 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
             got.append((out.read(), err.read()))
         return got
 
-    def report(what: str) -> str:
+    def report(msg: str) -> str:
         # Every incarnation's last lines, each live one's stacks among
         # them: which rank a hang held, and where.
-        return what + "".join(
+        return msg + "".join(
             f"\n--- {name} stdout ---\n{o[-1500:]}\n--- {name} stderr "
             f"---\n{e[-6000:]}" for name, (o, e) in zip(
                 ("rank 0", "rank 1", "restarted rank 1"), texts()))
 
-    procs = [spawn(0, 0, late_s), spawn(1, ELASTIC_DIE_AT)]
+    procs = [spawn(0, 0, late_s), spawn(1, die_at)]
     waited = "300 s for rank 1's kill"
     try:
         procs[1].wait(timeout=300)
         dead = time.monotonic()
         if procs[1].returncode != -signal.SIGKILL:
-            raise RuntimeError(report(f"path (f) rank 1 exited "
+            raise RuntimeError(report(f"{what} rank 1 exited "
                                       f"{procs[1].returncode}, not by "
                                       f"SIGKILL"))
         procs.append(spawn(1, 0))
@@ -2046,7 +2132,7 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
             p.send_signal(signal.SIGUSR1)
         time.sleep(2)
         raise RuntimeError(report(
-            f"path (f): {len(live)} rank process(es) still running "
+            f"{what}: {len(live)} rank process(es) still running "
             f"{waited} (stacks below)")) from None
     finally:
         for p in procs:
@@ -2059,96 +2145,99 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0) -> tuple:
             err.close()
     for name, rc, (_, err) in (("rank 0", rcs[0], got[0]),
                                ("restarted rank 1", rcs[1], got[2])):
-        require(rc == 0, f"path (f) {name} exited {rc}: {err[-3000:]}")
+        require(rc == 0, f"{what} {name} exited {rc}: {err[-3000:]}")
     return [t[0] for t in got], dead, started
 
 
-def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
-    """Path (f): path (d)'s two ranks under the port's coordinator, each
-    with ``ElasticPolicy(save_every=1, max_resumes=6)``; rank 1
-    SIGKILLs itself in its 2nd sync call and is started again. Gates:
-    rank 1 died of SIGKILL and came back from its checkpoint; rank 0
-    resumed and rebuilt; every step's digests equal on every rank and
-    equal to path (d)'s; one recovery on the coordinator and the
-    ranks' generation its; rank 0's postmortem bundle; each step's
-    launches path (c)'s per attempt."""
+def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
+                 per_attempt: dict, extra=()) -> tuple:
+    """Run an elastic path (``run_elastic`` under a coordinator started
+    as a process, checkpoints under the temporary directory; rank 1
+    dies at its ``die_at``-th sync call or bucket push, in step
+    ``kill_step``) and hold the gates every elastic path holds: rank 1
+    died of SIGKILL and came back from its checkpoint of step
+    ``kill_step - 1``; rank 0 resumed once, in step ``kill_step``, and
+    rebuilt; every step's digests equal on every
+    rank; one recovery on the coordinator and the ranks' generation
+    its; each step's launches ``per_attempt`` per attempt. Returns the
+    numbers, each rank's step lines and rank 0's postmortem bundle."""
     cfg = llama.LLAMA3_1B
     ckpt_bytes = 3 * grad_bytes(cfg)          # params and two moments
     root, free = checkpoint_root(2 * 2 * ckpt_bytes + (1 << 30))
     coord, addr = start_coordinator()
     try:
-        outs, dead, started = run_elastic(addr, root)
+        outs, dead, started = run_elastic(
+            addr, root, steps=steps, die_at=die_at, extra=extra, what=what,
+            env={"TDR_RESUME_STACKS": os.path.join(root, "stacks")})
         metrics = ControlClient(addr).metrics()
         bundles = sorted(Path(root, "postmortem", ELASTIC_WORLD).glob(
             "incident-g*/rank0.json"))
         bundle = json.loads(bundles[0].read_text()) if bundles else None
+        # The stacks of a resume that took 30 s or more.
+        stacks = [t for t in (f.read_text() for f in sorted(
+            Path(root).glob("stacks.*"))) if "File " in t]
     finally:
         stop(coord)
         shutil.rmtree(root, ignore_errors=True)
     r0, r1a, r1b = (rank_lines(t) for t in outs)
     killed = [ln["killed_monotonic"] for ln in r1a if "killed_monotonic"
               in ln]
-    require(len(killed) == 1, "path (f) rank 1 did not note its kill")
-    require(f"RESTORED 1 {ELASTIC_DIE_AT - 1}" in outs[2],
-            f"path (f) rank 1 did not restore step {ELASTIC_DIE_AT - 1}")
-    steps = {k: [] for k in range(ELASTIC_STEPS + 1)}
+    require(len(killed) == 1, f"{what} rank 1 did not note its kill")
+    require(f"RESTORED 1 {kill_step - 1}" in outs[2],
+            f"{what} rank 1 did not restore step {kill_step - 1}")
+    by_step = {k: [] for k in range(steps + 1)}
     for lines in (r0, r1a, r1b):
         for ln in lines:
             if "digest" in ln:
-                steps[ln["step"]].append(ln)
-    for k, lines in steps.items():
+                by_step[ln["step"]].append(ln)
+    for k, lines in by_step.items():
         require({ln["rank"] for ln in lines} == {0, 1},
-                f"path (f) step {k} reported by ranks "
+                f"{what} step {k} reported by ranks "
                 f"{[ln['rank'] for ln in lines]}")
         require(len({ln["digest"] for ln in lines}) == 1,
-                f"path (f) parameter digests differ after step {k}")
-    digests = [steps[k][0]["digest"] for k in range(ELASTIC_STEPS + 1)]
+                f"{what} parameter digests differ after step {k}")
+    digests = [by_step[k][0]["digest"] for k in range(steps + 1)]
     by_rank = [[ln for ln in r0 if ln.get("step", 0) > 0 and "loss" in ln],
                [ln for ln in r1a + r1b if ln.get("step", 0) > 0
                 and "loss" in ln]]
     losses = [[ln["loss"] for ln in lines] for lines in by_rank]
     for r, lines in enumerate(by_rank):
-        require([ln["step"] for ln in lines]
-                == list(range(1, ELASTIC_STEPS + 1)),
-                f"path (f) rank {r} steps {[ln['step'] for ln in lines]}")
+        require([ln["step"] for ln in lines] == list(range(1, steps + 1)),
+                f"{what} rank {r} steps {[ln['step'] for ln in lines]}")
         require(all(np.isfinite(losses[r])), f"rank {r} losses {losses[r]}")
         for ln in lines:
-            want = {k: v * (1 + ln["resumes"]) for k, v in c_per_step.items()}
+            want = {k: v * (1 + ln["resumes"])
+                    for k, v in per_attempt.items()}
             require(ln["launches"] == want,
-                    f"path (f) rank {r} step {ln['step']} launches "
+                    f"{what} rank {r} step {ln['step']} launches "
                     f"{ln['launches']} != {want}")
     resumed = [ln for ln in by_rank[0] if ln["resumes"]]
-    require(len(resumed) == 1 and resumed[0]["step"] == ELASTIC_DIE_AT,
-            f"path (f) rank 0 resumed at steps "
+    require(len(resumed) == 1 and resumed[0]["step"] == kill_step,
+            f"{what} rank 0 resumed at steps "
             f"{[(ln['step'], ln['resumes']) for ln in resumed]}")
     res = resumed[0]
     final0 = next(ln for ln in r0 if "final_digest" in ln)
     final1 = next(ln for ln in r1b if "final_digest" in ln)
     require(final0["resume"] >= 1 and final0["rebuild"] >= 1,
-            f"path (f) rank 0 counters: resume {final0['resume']}, "
+            f"{what} rank 0 counters: resume {final0['resume']}, "
             f"rebuild {final0['rebuild']}")
     series = f'{{world="{ELASTIC_WORLD}"}}'
     served = {name: float(ln.split()[-1]) for ln in metrics.splitlines()
               for name in ("generation", "rebuilds_total")
               if ln.startswith(f"tdr_ctl_{name}{series} ")}
     require(served.get("rebuilds_total") == 1,
-            f"coordinator recoveries {served} (one incident)")
+            f"{what} coordinator recoveries {served} (one incident)")
     # The ranks' generation moved at rank 0's failure report, at rank
     # 1's rejoin and, where rank 1's lease ran out before it rejoined,
     # at the expiry; the coordinator's moved twice more as both ranks
     # left at the end.
     require(final0["generation"] == final1["generation"] > 0
             and served.get("generation") == final0["generation"] + 2,
-            f"coordinator generation {served} against the ranks' "
+            f"{what} coordinator generation {served} against the ranks' "
             f"{final0['generation']} / {final1['generation']}")
-    require(bundle is not None and bundle["format"] == "tdr-postmortem-v1"
-            and bundle["incarnation"] is not None,
-            f"path (f) rank 0 postmortem bundle: {bundles}")
-    clean = [ln for lines in by_rank for ln in lines
-             if ln["step"] > 1 and ln["step"] != ELASTIC_DIE_AT]
     first1 = next(ln for ln in r1b if "ready_monotonic" in ln)
     out = {"config": f"{cfg.name}/bf16/remat", "ranks": 2,
-           "steps": ELASTIC_STEPS, "killed_in_sync_call": ELASTIC_DIE_AT,
+           "steps": steps, "killed_at_tick": die_at,
            "checkpoint_dir_free_bytes": free,
            "rank1_exit": "-SIGKILL", "digests": digests,
            "digests_equal_every_step": True, "losses": losses,
@@ -2173,27 +2262,45 @@ def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
            - started,
            "rank1_start_to_rejoin_s": first1["ready_monotonic"] - started,
            "resumed_step_ms": res["step_ms"],
-           "clean_step_ms": [ln["step_ms"] for ln in clean],
-           "clean_step_ms_mean": float(np.mean([ln["step_ms"]
-                                                for ln in clean])),
-           "clean_step_ms_less_save_mean": float(np.mean(
-               [ln["step_ms"] - ln["ckpt_save_ms"] for ln in clean])),
-           "path_d_step_ms_mean": d["step_ms_mean"],
            "finite_ms_by_rank": [[ln["finite_ms"] for ln in lines]
                                  for lines in by_rank],
-           "finite_ms_clean_mean": float(np.mean([ln["finite_ms"]
-                                                  for ln in clean])),
            "coordinator": served,
            "rank_generation": final0["generation"],
-           "postmortem": str(bundles[0].relative_to(
-               Path(root))) if bundles else None,
+           "resume_stacks": stacks,
            "launches": {name: sum(ln["launches"][name] for lines in by_rank
-                                  for ln in lines) for name in c_per_step},
-           "launches_per_step_per_rank": c_per_step,
+                                  for ln in lines) for name in per_attempt},
+           "launches_per_step_per_rank": per_attempt,
            "note": "detect_ms runs from rank 1's kill to rank 0's resume "
                    "and includes whatever of rank 0's step was left"}
-    out.update(against_path_d(digests, losses, d, c_per_step, "path (f)",
-                              "the elastic resume"))
+    return out, by_rank, bundle
+
+
+def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
+    """Path (f): path (d)'s two ranks under the port's coordinator, each
+    with ``ElasticPolicy(save_every=1, max_resumes=6)``; rank 1
+    SIGKILLs itself in its 2nd sync call and is started again. Gates:
+    ``elastic_path``'s, every step's digests equal to path (d)'s, rank
+    0's postmortem bundle."""
+    out, by_rank, bundle = elastic_path(
+        "path (f)", ELASTIC_STEPS, ELASTIC_DIE_AT, ELASTIC_DIE_AT,
+        c_per_step)
+    require(bundle is not None and bundle["format"] == "tdr-postmortem-v1"
+            and bundle["incarnation"] is not None,
+            f"path (f) rank 0 postmortem bundle: {bundle}")
+    clean = [ln for lines in by_rank for ln in lines
+             if ln["step"] > 1 and ln["step"] != ELASTIC_DIE_AT]
+    out.update({
+        "clean_step_ms": [ln["step_ms"] for ln in clean],
+        "clean_step_ms_mean": float(np.mean([ln["step_ms"]
+                                             for ln in clean])),
+        "clean_step_ms_less_save_mean": float(np.mean(
+            [ln["step_ms"] - ln["ckpt_save_ms"] for ln in clean])),
+        "path_d_step_ms_mean": d["step_ms_mean"],
+        "finite_ms_clean_mean": float(np.mean([ln["finite_ms"]
+                                               for ln in clean])),
+        "postmortem_error": bundle["error"]})
+    out.update(against_path_d(out["digests"], out["losses"], d, c_per_step,
+                              "path (f)", "the elastic resume"))
     return out
 
 
@@ -2807,6 +2914,40 @@ def phase_mesh_two_slice(d: dict) -> dict:
             "path_d_step_ms_mean": d["step_ms_mean"]}
 
 
+def phase_mesh_two_slice_elastic(mesh2: dict, f: dict) -> dict:
+    """Path (i), two meshed slices with the per-layer sync and
+    ``--elastic-dir`` under the port's coordinator, 2 steps: path (i)'s
+    two-slice command with ``--per-layer``, run as path (f) runs; rank 1
+    SIGKILLs itself at its first bucket push of step 2 and is started
+    again. Gates: ``elastic_path``'s, the parameter digests after every
+    step equal to the fused two-slice run's of path (i) (same weights
+    and batches: the per-layer sync changes no bit), launches per
+    attempt two positions' of (c)'s, and the checkpoint file's bytes
+    those of path (f)'s single-device file (the meshed file holds the
+    same leaves, whole)."""
+    cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True)
+    steps, buckets = 2, cfg.n_layers + 3
+    out, _, _ = elastic_path(
+        "path (i) per-layer elastic", steps, 2, buckets + 1,
+        expected_mesh_launches(cfg, 2),
+        extra=["--mesh", MESH_TWO_SLICE, "--devices", "cuda:0,cuda:0",
+               "--per-layer"])
+    require(out["digests"] == mesh2["digests"][:steps + 1],
+            f"path (i) per-layer elastic digests {out['digests']} != the "
+            f"fused two slices' {mesh2['digests']}")
+    sizes = set(out["ckpt_bytes_by_rank"]) | set(f["ckpt_bytes_by_rank"])
+    require(len(sizes) == 1, f"path (i) per-layer elastic checkpoint bytes "
+            f"{out['ckpt_bytes_by_rank']} != path (f)'s "
+            f"{f['ckpt_bytes_by_rank']}")
+    return {**out, "mesh": MESH_TWO_SLICE, "devices": "cuda:0,cuda:0",
+            "per_layer": True, "killed_at_bucket_push": buckets + 1,
+            "digests_equal_fused_two_slices": True,
+            "path_f_ckpt_bytes": f["ckpt_bytes_by_rank"][0],
+            "path_f_rebuild_ms": f["rebuild_ms"],
+            "path_f_restore_ms_rank1_start": f["restore_ms_rank1_start"],
+            "path_f_rank1_start_to_rejoin_s": f["rank1_start_to_rejoin_s"]}
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -2855,6 +2996,8 @@ def main() -> int:
     serve = run_phase("path_h_serve_two_slice_llama3_1b_f32",
                       phase_serve_two_slice, cfg1, bat)
     train = run_phase("path_c_train_llama3_1b_bf16", phase_train_1b)
+    dots = run_phase("path_c_train_llama3_1b_bf16_dots", phase_train_1b_dots,
+                     train)
     run_phase("train_parity_llama3_1b_f32", phase_train_parity, state, cfg1)
     run_phase("path_i_mesh_parity_llama3_1b_f32", phase_mesh_parity, state,
               cfg1)
@@ -2877,11 +3020,15 @@ def main() -> int:
     sp = run_phase("path_g_seq_parallel_llama3_1b_bf16", phase_seq_parallel)
     mesh2 = run_phase("path_i_mesh_two_slice_llama3_1b_bf16",
                       phase_mesh_two_slice, dp)
+    mesh_ela = run_phase(
+        "path_i_mesh_two_slice_per_layer_elastic_llama3_1b_bf16",
+        phase_mesh_two_slice_elastic, mesh2, ela)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
                 "b_batcher": bat["launches"][name],
                 "c_train": train["launches"][name],
+                "c_train_dots": dots["launches"][name],
                 "d_two_slice_dp": dp["launches"][name],
                 "e_two_slice_dp_per_layer": dpl["launches"][name],
                 "f_two_slice_elastic": ela["launches"][name],
@@ -2889,7 +3036,9 @@ def main() -> int:
                 "g_seq_parallel_ulysses": sp["ulysses"]["launches"][name],
                 "h_serve_two_slice": serve["launches"][name],
                 "i_mesh_dp2_tp2": mesh["launches"][name],
-                "i_mesh_two_slice": mesh2["launches"][name]}
+                "i_mesh_two_slice": mesh2["launches"][name],
+                "i_mesh_two_slice_per_layer_elastic":
+                    mesh_ela["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

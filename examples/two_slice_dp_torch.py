@@ -51,6 +51,10 @@ rocnrdma_tpu_torch.tools.rendezvous --port P``):
     python examples/two_slice_dp_torch.py --cpu --steps 4 \
         --controller 127.0.0.1:P --elastic-dir /tmp/ck
 
+``--mesh``, ``--per-layer`` and ``--elastic-dir`` combine: a meshed
+slice pushes whole leaves layer by layer and checkpoints whole leaves,
+the file a one-device slice writes.
+
 ``--controller HOST:PORT`` arbitrates the ranks' rendezvous and every
 rebuild there (``RingWorld(controller=...)``: the coordinator hands out
 the ports and the generation). ``--elastic-dir DIR`` arms

@@ -20,8 +20,10 @@ Where the kernels run:
   JAX package's tests pin;
 - with ``LlamaConfig.remat``, the no-cache forward recomputes each block
   in the backward (``torch.utils.checkpoint``, non-reentrant), the
-  counterpart of flax's ``nn.remat(Block)`` with the "full" policy: K1
-  and K3 then run a second time per block;
+  counterpart of flax's ``nn.remat(Block)``: K1 and K3 then run a
+  second time per block. ``remat_policy`` "full" recomputes everything;
+  "dots" (:func:`checkpoint_block`) keeps the outputs of the block's
+  projections and recomputes the rest, K1 and K3 included;
 - cached decode (``pos > 0``) keeps the plain grouped-query product
   against the cache, as the JAX package computes it outside any kernel:
   f32 scores, softmax, probs cast to the model dtype before the value
@@ -36,6 +38,7 @@ cache is updated in place.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -52,6 +55,7 @@ from ..ops.rmsnorm import rmsnorm
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_TINY", "CONFIGS",
     "rope_freqs", "apply_rope", "project_qkv", "out_proj", "swiglu",
+    "checkpoint_block",
     "RMSNorm", "Attention", "MLP", "Block",
     "Llama", "init_cache", "init_params", "generate", "param_names",
     "flax_tree", "params_from_flax", "params_to_flax", "cross_entropy_loss",
@@ -72,9 +76,17 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     # Recompute each block in the backward instead of keeping its
-    # activations (no-cache forward only; decode has no backward). The
-    # JAX package's "full" remat policy; its "dots" policy is not ported.
+    # activations (no-cache forward only; decode has no backward).
     remat: bool = False
+    # The JAX package's remat policies: "full" recomputes everything;
+    # "dots" keeps the outputs of the projections (the matmuls with no
+    # batch dimension) and recomputes the rest (checkpoint_block).
+    remat_policy: str = "full"
+
+    def __post_init__(self) -> None:
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(f"remat_policy={self.remat_policy!r}: must be "
+                             "'full' or 'dots'")
 
     @property
     def head_dim(self) -> int:
@@ -148,6 +160,31 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """The MLP: (silu(x·W_gate) ∘ x·W_up)·W_down."""
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def _dots_policy(_ctx, op, *_args, **_kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` in
+    torch's selective checkpoint: keep a product with no batch dimension
+    (``h @ w`` of a 3-D ``h`` and a weight reaches ``aten.mm``),
+    recompute everything else (the plain attention's ``aten.bmm``, the
+    kernels, the elementwise work)."""
+    if op.overloadpacket in (torch.ops.aten.mm, torch.ops.aten.addmm):
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_block(fn, *args, policy: str):
+    """``fn(*args)`` recomputed in the backward (non-reentrant
+    ``torch.utils.checkpoint``) under the remat ``policy``: "full"
+    keeps nothing of ``fn``'s inside, "dots" keeps its projections'
+    outputs."""
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            torch.utils.checkpoint.create_selective_checkpoint_contexts,
+            _dots_policy)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kw)
 
 
 def _weight(shape, dtype, device) -> nn.Parameter:
@@ -305,8 +342,8 @@ class Llama(nn.Module):
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             if remat:
-                x = torch.utils.checkpoint.checkpoint(
-                    layer, x, self.freqs, use_reentrant=False)
+                x = checkpoint_block(layer, x, self.freqs,
+                                     policy=cfg.remat_policy)
             else:
                 x = layer(x, self.freqs, None if cache is None else cache[i],
                           pos)

@@ -30,14 +30,17 @@ where XLA would insert its collectives:
   is the mean over the global batch, as the JAX trainer's.
 
 With ``cfg.remat`` each layer's mesh-wide function is checkpointed
-(``use_reentrant=False``): the backward recomputes the same ops as the
-single-device remat, K1 and K3 relaunching on every position. The
+(``checkpoint_block`` under ``cfg.remat_policy``): the backward
+recomputes the same ops as the single-device remat, K1 and K3
+relaunching on every position under either policy. The
 backward is autograd through the cross-position functions; each
 copy's gradient is then partial (a dp copy saw its rows, a replicated
-norm's tp copy its position's use), and :meth:`MeshedLlama.reduce_grads`
+norm's tp copy its position's use), and :meth:`MeshedLlama.reduce_names`
 sums the copies of every logical block onto its first copy, the
 master, which the optimizer updates before :meth:`MeshedLlama.broadcast`
-writes it back to the other copies.
+writes it back to the other copies. The per-layer sync sums a bucket's
+names as soon as their copies have accumulated, the fused path every
+name after the backward: one sum, in one order, either way.
 """
 
 from __future__ import annotations
@@ -47,7 +50,6 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
-import torch.utils.checkpoint
 from torch.profiler import record_function
 
 from ..ops.attention import attention
@@ -56,8 +58,8 @@ from ..ops.sharding import attn_ok, on_positions, run_sharded
 from ..parallel.mesh import (Mesh, all_gather, assemble, batch_spec, block,
                              gather, ordered_sum, param_shardings, psum,
                              shard)
-from .llama import (LlamaConfig, _flax_path, flax_tree, out_proj,
-                    param_names, project_qkv, rope_freqs, swiglu)
+from .llama import (LlamaConfig, _flax_path, checkpoint_block, flax_tree,
+                    out_proj, param_names, project_qkv, rope_freqs, swiglu)
 
 __all__ = ["MeshedLlama"]
 
@@ -114,6 +116,8 @@ class MeshedLlama:
                     key = self._block_key(name, pos)
                     held.setdefault(key, []).append(pos)
                 self.copies[name] = list(held.values())
+        # The names whose copies were summed since the last zero_grad.
+        self._summed: set = set()
         self.freqs = {d: rope_freqs(cfg.head_dim, cfg.max_seq_len,
                                     cfg.rope_theta, d)
                       for d in set(mesh.device_list)}
@@ -202,8 +206,7 @@ class MeshedLlama:
         for i in range(cfg.n_layers):
             fn = functools.partial(self._layer, i, s)
             if remat:
-                xs = torch.utils.checkpoint.checkpoint(fn, *xs,
-                                                       use_reentrant=False)
+                xs = checkpoint_block(fn, *xs, policy=cfg.remat_policy)
             else:
                 xs = fn(*xs)
         hs = self._norm(xs, "final_norm.weight")
@@ -228,18 +231,30 @@ class MeshedLlama:
     def masters(self) -> List[torch.Tensor]:
         """The first copy of every logical block, in name order: what
         the optimizer updates."""
-        return [self.local[group[0]][name] for name in self.names
-                for group in self.copies[name]]
+        return [t for name in self.names for _, t in self.masters_of(name)]
+
+    def masters_of(self, name: str) -> List[Tuple[int, torch.Tensor]]:
+        """(position, master) of each logical block of ``name``."""
+        return [(g[0], self.local[g[0]][name]) for g in self.copies[name]]
+
+    def copies_of(self, name: str) -> List[torch.Tensor]:
+        """Every position's copy of ``name``, by position."""
+        return [self.local[p][name] for p in range(self.mesh.size)]
 
     def zero_grad(self) -> None:
         for p in self.parameters():
             p.grad = None
+        self._summed = set()
 
-    def reduce_grads(self) -> None:
-        """Each logical block's gradient, the sum of its copies' in
-        position order, onto its master; the other copies' dropped."""
+    def reduce_names(self, names) -> None:
+        """For each of ``names``, each logical block's gradient, the sum
+        of its copies' in position order, onto its master; the other
+        copies' dropped. A name already summed since the last
+        :meth:`zero_grad` is left as it is."""
         with record_function("mesh.grad_sum"), torch.no_grad():
-            for name in self.names:
+            for name in names:
+                if name in self._summed:
+                    continue
                 for group in self.copies[name]:
                     ps = [self.local[p][name] for p in group]
                     gs = [q.grad for q in ps if q.grad is not None]
@@ -247,28 +262,35 @@ class MeshedLlama:
                         ps[0].grad = ordered_sum(gs).to(ps[0].device)
                         for q in ps[1:]:
                             q.grad = None
+                self._summed.add(name)
 
     @torch.no_grad()
-    def broadcast(self) -> None:
-        """Every master written into its other copies."""
+    def broadcast(self, names=None) -> None:
+        """Every master (of ``names``, default all) written into its
+        other copies."""
         with record_function("mesh.broadcast"):
-            for name in self.names:
+            for name in self.names if names is None else names:
                 for group in self.copies[name]:
                     master = self.local[group[0]][name]
                     for p in group[1:]:
                         self.local[p][name].copy_(master)
 
+    def whole(self, name: str, of) -> torch.Tensor:
+        """``of(master)`` of every logical block of ``name``, assembled
+        in spec order on the mesh's first device (a replicated one is
+        ``of(master)`` itself where the master lives there)."""
+        blocks: List[torch.Tensor] = [None] * self.mesh.size
+        for group in self.copies[name]:
+            t = of(self.local[group[0]][name])
+            for p in group:
+                blocks[p] = t
+        return assemble(blocks, self.spec[name], self.mesh, self.device)
+
     def full(self, name: str, grad: bool = False) -> torch.Tensor:
         """The whole parameter ``name`` (or its master gradient) on the
-        mesh's first device, assembled from the masters in spec order
-        (a replicated one is its master's own tensor where that lives
-        on the first device)."""
-        blocks = [self.local[p][name] for p in range(self.mesh.size)]
-        if grad:
-            blocks = [b.grad for b in blocks]
-        else:
-            blocks = [b.detach() for b in blocks]
-        return assemble(blocks, self.spec[name], self.mesh, self.device)
+        mesh's first device (:meth:`whole`)."""
+        return self.whole(name, (lambda t: t.grad) if grad
+                          else torch.Tensor.detach)
 
     def tree(self, grad: bool = False) -> Dict[str, object]:
         """The whole parameters (or gradients) as the flax-shaped tree."""
@@ -286,8 +308,7 @@ class MeshedLlama:
             for key in _flax_path(name):
                 node = node[key]
             full = torch.as_tensor(node)
-            for group in self.copies[name]:
-                master = self.local[group[0]][name]
-                part = block(full, self.spec[name], self.mesh, group[0])
+            for pos, master in self.masters_of(name):
+                part = block(full, self.spec[name], self.mesh, pos)
                 if part is not master.grad:
                     master.grad.copy_(part)

@@ -4,10 +4,15 @@
 One ``.npz`` of path-flattened leaves plus metadata:
 
 - ``params/<path>``: every parameter, keyed by its path in the
-  flax-shaped tree (``Trainer._param_tree``), so the ``params/...``
-  keys are the JAX checkpoint's for the same model;
+  flax-shaped tree, so the ``params/...`` keys are the JAX
+  checkpoint's for the same model;
 - ``opt/<state>/<path>``: the ``torch.optim.AdamW`` state of each
   parameter (``exp_avg``, ``exp_avg_sq`` and its ``step``);
+- every leaf whole: the trainer hands each one over
+  (``trainer._ckpt_leaf(name, what)``) and takes it back
+  (``trainer._ckpt_load(name, what, whole)``), so a meshed trainer
+  assembles its blocks and splits them again, and its file is the one a
+  single-device trainer writes at the same state;
 - ``__meta__/step``, ``__meta__/config`` (the config name) and
   ``__meta__/version``;
 - a bf16 leaf is stored bit-exact as ``uint16`` beside a
@@ -19,7 +24,8 @@ The file is written to ``<path>.tmp.npz`` one leaf at a time (each
 leaf copied to the host, written, dropped: the host holds one leaf, not
 the whole state) and published with ``os.replace``. Restore copies
 every leaf back into the trainer's tensors in place, on their device,
-bit for bit. The ``ckpt.save`` and ``ckpt.restore`` trace events carry
+bit for bit, creating an optimizer state that is missing in AdamW's own
+layout. The ``ckpt.save`` and ``ckpt.restore`` trace events carry
 the seconds spent copying between device and host (``d2h_s`` /
 ``h2d_s``) and on the file (``write_s`` / ``read_s``).
 """
@@ -29,14 +35,16 @@ from __future__ import annotations
 import os
 import time
 import zipfile
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
+from ..models.llama import flax_tree, param_names
 from ..utils.trace import trace
 
-__all__ = ["checkpoint_file", "save_checkpoint", "restore_checkpoint"]
+__all__ = ["checkpoint_file", "save_checkpoint", "restore_checkpoint",
+           "load_adamw_state"]
 
 _FORMAT_VERSION = 1
 _OPT_KEYS = ("exp_avg", "exp_avg_sq", "step")
@@ -62,17 +70,39 @@ def _flatten_with_paths(tree, prefix: str = ""
             yield path, node
 
 
+def _paths(trainer) -> List[Tuple[str, str]]:
+    """(path, state-dict name) of every parameter, in the file's
+    order."""
+    names = param_names(trainer.cfg.n_layers)
+    return list(_flatten_with_paths(flax_tree((n, n) for n in names)))
+
+
 def _named_leaves(trainer) -> Iterator[Tuple[str, torch.Tensor]]:
     """Every tensor a checkpoint holds, by key: the parameters, then
-    each parameter's AdamW state."""
-    params = list(_flatten_with_paths(trainer._param_tree(lambda p: p)))
-    for path, p in params:
-        yield f"params/{path}", p
-    for name in _OPT_KEYS:
-        for path, p in params:
-            state = trainer.opt.state.get(p)
-            if state:
-                yield f"opt/{name}/{path}", state[name]
+    each parameter's AdamW state; each made when it is reached."""
+    paths = _paths(trainer)
+    for path, name in paths:
+        yield f"params/{path}", trainer._ckpt_leaf(name, "param")
+    for what in _OPT_KEYS:
+        for path, name in paths:
+            leaf = trainer._ckpt_leaf(name, what)
+            if leaf is not None:
+                yield f"opt/{what}/{path}", leaf
+
+
+def load_adamw_state(opt: torch.optim.Optimizer, p: torch.Tensor,
+                     what: str, value: torch.Tensor) -> None:
+    """Copy ``value`` into ``p``'s AdamW state ``what`` in place; a
+    state the optimizer has not made yet is made in AdamW's own layout
+    (an uncaptured step lives on the host)."""
+    state: Dict[str, torch.Tensor] = opt.state[p]
+    if what not in state:
+        group = opt.param_groups[0]
+        on_card = what != "step" or group.get("capturable") or group.get(
+            "fused")
+        state[what] = torch.empty(value.shape, dtype=value.dtype,
+                                  device=p.device if on_card else "cpu")
+    state[what].copy_(value)
 
 
 def _encode(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -149,25 +179,11 @@ def restore_checkpoint(path: str, trainer) -> int:
             read_s += time.perf_counter() - t0
             return leaf
 
-        params = list(_flatten_with_paths(trainer._param_tree(lambda p: p)))
         t_start = time.perf_counter()
-        with torch.no_grad():
-            for path_, p in params:
-                p.copy_(load(f"params/{path_}"))
-            for path_, p in params:
-                state: Dict[str, torch.Tensor] = trainer.opt.state[p]
-                for name in _OPT_KEYS:
-                    value = load(f"opt/{name}/{path_}")
-                    if name not in state:
-                        # A trainer that never stepped: AdamW's own
-                        # layout (an uncaptured step lives on the host).
-                        group = trainer.opt.param_groups[0]
-                        on_card = name != "step" or group.get(
-                            "capturable") or group.get("fused")
-                        state[name] = torch.empty(
-                            value.shape, dtype=value.dtype,
-                            device=p.device if on_card else "cpu")
-                    state[name].copy_(value)
+        for path_, name in _paths(trainer):
+            trainer._ckpt_load(name, "param", load(f"params/{path_}"))
+            for what in _OPT_KEYS:
+                trainer._ckpt_load(name, what, load(f"opt/{what}/{path_}"))
         h2d_s = time.perf_counter() - t_start - read_s
     trainer.global_step = step
     trace.event("ckpt.restore", path=path, step=step, read_s=read_s,

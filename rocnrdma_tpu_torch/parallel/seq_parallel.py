@@ -57,7 +57,7 @@ from ..collectives.ulysses import UlyssesAttention, ulysses_attention
 from ..models.llama import CONFIGS, LlamaConfig, cross_entropy_loss
 from ..ops import _native
 from ..utils.trace import trace
-from .trainer import adamw, build_model, param_tree, set_grads
+from .trainer import Trainer, adamw, build_model, param_tree, set_grads
 
 __all__ = ["SeqParallelTrainer"]
 
@@ -74,7 +74,8 @@ class SeqParallelTrainer:
 
     ``sp_mode`` is ``"ring"`` (K/V rotation, :class:`RingAttention`) or
     ``"ulysses"`` (all-to-all head resharding; both head counts must
-    divide the world). ``optimizer`` is a factory over the parameters
+    divide the world). Under ``remat`` the halves are recomputed whole
+    whatever ``remat_policy`` says, as the JAX trainer's are. ``optimizer`` is a factory over the parameters
     (e.g. ``lambda ps: torch.optim.SGD(ps, lr=...)``); the default is
     the ``Trainer``'s AdamW. ``params`` and ``seed`` choose the weights
     as for ``Trainer``; ``model_overrides`` replace config fields."""
@@ -177,8 +178,10 @@ class SeqParallelTrainer:
         """The gradients as the flax-shaped tree the sync takes."""
         return param_tree(self.model, lambda p: p.grad)
 
-    def _param_tree(self, leaf) -> Dict[str, object]:
-        return param_tree(self.model, leaf)
+    # A checkpoint's leaves, given and taken as the single-device
+    # trainer does.
+    _ckpt_leaf = Trainer._ckpt_leaf
+    _ckpt_load = Trainer._ckpt_load
 
     def forward_backward(self, inputs, targets) -> float:
         """This rank's local mean loss; its exact gradients are left in

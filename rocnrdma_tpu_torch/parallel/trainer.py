@@ -53,9 +53,8 @@ sharded step over an intra-slice dp × tp mesh
 (:mod:`~rocnrdma_tpu_torch.parallel.mesh`,
 :mod:`~rocnrdma_tpu_torch.models.llama_mesh`) on ``devices`` (default:
 every visible card). Its fused and overlapped cross-slice syncs take
-the whole gradient of each leaf, so the wire is the single-device
-trainer's; its per-layer sync and ``elastic`` are not ported yet and
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 7.
+the whole gradient of each leaf, so the wire, the layer plan and the
+checkpoint are the single-device trainer's.
 """
 
 from __future__ import annotations
@@ -63,6 +62,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
+import threading
 import time
 from typing import Any, Dict, Optional, Union
 
@@ -71,12 +71,14 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..collectives.torch_shim import tree_flatten
 from ..models.llama import (CONFIGS, Llama, LlamaConfig, _flax_path,
-                            cross_entropy_loss, flax_tree, init_params)
+                            cross_entropy_loss, flax_tree, init_params,
+                            param_names)
 from ..models.llama_mesh import MeshedLlama
 from ..transport.engine import TransportError, dtype_name
 from ..utils.trace import trace
-from .checkpoint import checkpoint_file, restore_checkpoint, save_checkpoint
-from .mesh import make_mesh
+from .checkpoint import (checkpoint_file, load_adamw_state,
+                         restore_checkpoint, save_checkpoint)
+from .mesh import block, make_mesh
 
 __all__ = ["loss_fn", "ElasticPolicy", "Trainer", "MeshTrainer"]
 
@@ -121,12 +123,6 @@ class _NonFiniteGrads(RuntimeError):
     """Internal: the synced gradients are non-finite (NaN/inf). Raised
     before the update so ``step()`` can run the quarantine retry before
     the elastic ladder engages."""
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to rocnrdma_tpu_torch yet (ROADMAP.md "
-        f"Queue 1, {item})")
 
 
 def _check_elastic(elastic, cross_slice_sync) -> None:
@@ -266,17 +262,23 @@ class Trainer:
                                and hasattr(cross_slice_sync,
                                            "start_layered"))
         self._pending_layers = None
+        self._hook_error: Optional[BaseException] = None
         if self._per_layer:
-            inner = self._param_tree(lambda p: p)["params"]
+            inner = flax_tree((n, n) for n in param_names(
+                self.cfg.n_layers))["params"]
             self._buckets = [tree_flatten(inner[k])[0]
                              for k in sorted(inner)]
-            self.layer_plan = [
-                (k, [(p.numel(), dtype_name(p)) for p in ps])
-                for k, ps in zip(sorted(inner), self._buckets)]
-            for idx, ps in enumerate(self._buckets):
-                for p in ps:
-                    p.register_post_accumulate_grad_hook(
-                        functools.partial(self._grad_ready, idx))
+            self.layer_plan = [(k, [self._leaf_plan(n) for n in names])
+                               for k, names in zip(sorted(inner),
+                                                   self._buckets)]
+            # On a multi-card mesh each card's backward runs its hooks
+            # on its own autograd device thread.
+            self._left_lock = threading.Lock()
+            for idx, names in enumerate(self._buckets):
+                for n in names:
+                    for t in self._copies(n):
+                        t.register_post_accumulate_grad_hook(
+                            functools.partial(self._grad_ready, idx))
 
     def _place(self, mesh_shape, devices, device, seed, params) -> None:
         """Build the model on the trainer's device."""
@@ -297,6 +299,40 @@ class Trainer:
     def _devices(self):
         return [self.device]
 
+    def _copies(self, name: str):
+        """The tensors that hold parameter ``name`` and take its
+        gradient."""
+        return [self.model.get_parameter(name)]
+
+    def _leaf_plan(self, name: str):
+        """(numel, dtype) of parameter ``name`` in the per-layer plan."""
+        p = self.model.get_parameter(name)
+        return p.numel(), dtype_name(p)
+
+    def _bucket_grads(self, idx: int):
+        """Bucket ``idx``'s whole gradients, in tree order."""
+        return [self.model.get_parameter(n).grad for n in self._buckets[idx]]
+
+    def _ckpt_leaf(self, name: str, what: str):
+        """The whole tensor a checkpoint holds for parameter ``name``:
+        the parameter (``what`` "param") or its AdamW state ``what``;
+        None where the optimizer has not stepped it."""
+        p = self.model.get_parameter(name)
+        if what == "param":
+            return p
+        state = self.opt.state.get(p)
+        return state[what] if state else None
+
+    @torch.no_grad()
+    def _ckpt_load(self, name: str, what: str, whole: torch.Tensor) -> None:
+        """Copy ``whole`` from a checkpoint into parameter ``name`` or
+        its AdamW state ``what``, in place."""
+        p = self.model.get_parameter(name)
+        if what == "param":
+            p.copy_(whole)
+        else:
+            load_adamw_state(self.opt, p, what, whole)
+
     def _param_tree(self, leaf) -> Dict[str, object]:
         """``leaf(p)`` of every parameter in the flax-shaped tree."""
         return param_tree(self.model, leaf)
@@ -316,16 +352,30 @@ class Trainer:
 
     def _grad_ready(self, idx: int, _param) -> None:
         """Post-accumulate-grad hook: push bucket ``idx`` to the step's
-        pending sync once the last of its parameters' gradients has
-        accumulated. Runs inside the backward (on the card, on
+        pending sync once the last copy of its parameters' gradients
+        has accumulated. Runs inside the backward (on the card, on
         autograd's device thread), so it never raises: ``push`` keeps
         failures for ``finish()``."""
         pending = self._pending_layers
         if pending is None:
             return  # a backward outside a per-layer step
-        self._left[idx] -= 1
-        if self._left[idx] == 0:
-            pending.push(idx, [p.grad for p in self._buckets[idx]])
+        with self._left_lock:
+            self._left[idx] -= 1
+            last = self._left[idx] == 0
+        if last:
+            self._push(pending, idx)
+
+    def _push(self, pending, idx: int) -> None:
+        """Push bucket ``idx``'s whole gradients. A failure to gather
+        them is kept, and ``_synced_step`` raises it once ``finish()``
+        has drained the sync (which the push of nothing fails)."""
+        try:
+            grads = self._bucket_grads(idx)
+        except BaseException as e:  # noqa: BLE001 — re-raised after finish
+            if self._hook_error is None:
+                self._hook_error = e
+            grads = None
+        pending.push(idx, grads)
 
     def _mark(self, phase: str, t0: float) -> float:
         for device in self._devices():
@@ -351,20 +401,35 @@ class Trainer:
                 # The hooks push each bucket from inside the backward,
                 # so its wire rides under the rest of the backward.
                 pending = sync.start_layered(self.layer_plan)
-                self._left = [len(ps) for ps in self._buckets]
+                self._left = [sum(len(self._copies(n)) for n in names)
+                              for names in self._buckets]
+                self._hook_error = None
                 self._pending_layers = pending
             try:
                 with trace.span("trainer.backward", step=step_no):
                     loss = self._backward(tokens)
             finally:
                 self._pending_layers = None
+            if self._per_layer:
+                # A copy that took no gradient (a replicated head whose
+                # other tp positions' logits go unused) never fires its
+                # hook: its bucket goes once the backward is done.
+                for idx, left in enumerate(self._left):
+                    if left:
+                        self._left[idx] = 0
+                        self._push(pending, idx)
             if overlap and pending is None:
                 pending = sync.start(self.grads_tree())
             t0 = self._mark("grads_ms", t0)
         # The cross-slice hop: the gradients averaged across slices.
         with trace.span("trainer.sync", step=step_no):
             if self._per_layer:
-                tree = pending.finish(self.grads_tree())
+                try:
+                    tree = pending.finish(self.grads_tree())
+                finally:
+                    hook_error, self._hook_error = self._hook_error, None
+                    if hook_error is not None:
+                        raise hook_error
             elif pending is not None:
                 tree = pending.finish()
             else:
@@ -416,8 +481,9 @@ class Trainer:
         # drained its handles, and a per-layer one its posting worker,
         # before raising; what may still run are the per-layer sync's
         # side-stream copies into the staging tensors.
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for device in self._devices():
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
         world = getattr(self.cross_slice_sync, "world", None)
         if world is not None:
             old_size = getattr(world, "world", None)
@@ -558,31 +624,17 @@ class MeshTrainer(Trainer):
     and its result is split back onto the masters, as the JAX shim
     gathers a sharded leaf and puts the mean back on its sharding: the
     wire, the leaf order and the schedule digest are those of a JAX rank
-    with the same mesh and of a single-device trainer.
+    with the same mesh and of a single-device trainer. The per-layer
+    sync hooks every position's copy of every leaf: once the last copy
+    of a bucket's leaves has accumulated, the copies are summed onto the
+    masters (:meth:`~rocnrdma_tpu_torch.models.llama_mesh.MeshedLlama.
+    reduce_names`, the fused path's sum) and the bucket is pushed as
+    whole leaves, what a JAX rank's tap delivers. With ``elastic`` a
+    checkpoint holds whole leaves, the params and AdamW's moments
+    assembled from the masters: the file a single-device trainer writes
+    at the same state, and either restores the other.
     :meth:`param_tree`, :meth:`grads_tree` and :meth:`state_dict` give
     whole tensors."""
-
-    def __init__(self, config: Union[LlamaConfig, str],
-                 mesh_shape: Optional[Dict[str, int]] = None,
-                 learning_rate: float = 3e-4, weight_decay: float = 0.1,
-                 cross_slice_sync=None, devices=None, seed: int = 0,
-                 seq_parallel=None,
-                 elastic: Optional[ElasticPolicy] = None,
-                 device: DeviceLike = "cuda",
-                 params: Optional[Dict[str, torch.Tensor]] = None,
-                 **model_overrides) -> None:
-        what = f"a mesh of {_positions(mesh_shape)} positions ({mesh_shape})"
-        _check_elastic(elastic, cross_slice_sync)
-        if elastic is not None:
-            raise _not_ported(f"elastic= (the checkpoint and resume) on "
-                              f"{what}", "item 7")
-        if (getattr(cross_slice_sync, "per_layer", False)
-                and hasattr(cross_slice_sync, "start_layered")):
-            raise _not_ported(f"the per-layer cross-slice sync on {what}",
-                              "item 7")
-        super().__init__(config, mesh_shape, learning_rate, weight_decay,
-                         cross_slice_sync, devices, seed, seq_parallel,
-                         elastic, device, params, **model_overrides)
 
     def _place(self, mesh_shape, devices, device, seed, params) -> None:
         unknown = set(mesh_shape) - {"dp", "tp"}
@@ -606,6 +658,44 @@ class MeshTrainer(Trainer):
     def _devices(self):
         return sorted(set(self.mesh.device_list), key=str)
 
+    def _copies(self, name: str):
+        return self.model.copies_of(name)
+
+    def _leaf_plan(self, name: str):
+        masters = [t for _, t in self.model.masters_of(name)]
+        return sum(t.numel() for t in masters), dtype_name(masters[0])
+
+    def _bucket_grads(self, idx: int):
+        names = self._buckets[idx]
+        self.model.reduce_names(names)
+        return [self.model.full(n, grad=True) for n in names]
+
+    def _ckpt_leaf(self, name: str, what: str):
+        m = self.model
+        if what == "param":
+            return m.full(name)
+        states = [self.opt.state.get(t) for _, t in m.masters_of(name)]
+        if not all(states):
+            return None
+        if what == "step":
+            return states[0]["step"]
+        return m.whole(name, lambda t: self.opt.state[t][what])
+
+    @torch.no_grad()
+    def _ckpt_load(self, name: str, what: str, whole: torch.Tensor) -> None:
+        """Each master's block of ``whole`` into the master (then every
+        other copy from it) or into its AdamW state."""
+        m = self.model
+        for pos, master in m.masters_of(name):
+            part = (whole if what == "step"
+                    else block(whole, m.spec[name], m.mesh, pos))
+            if what == "param":
+                master.copy_(part)
+            else:
+                load_adamw_state(self.opt, master, what, part)
+        if what == "param":
+            m.broadcast([name])
+
     def _param_tree(self, leaf) -> Dict[str, object]:
         """``leaf`` of every whole parameter in the flax-shaped tree."""
         return flax_tree((name, leaf(t))
@@ -622,7 +712,7 @@ class MeshTrainer(Trainer):
 
     def _backward(self, tokens: torch.Tensor) -> torch.Tensor:
         loss = super()._backward(tokens)
-        self.model.reduce_grads()
+        self.model.reduce_names(self.model.names)
         return loss
 
     def _set_grads(self, tree) -> None:

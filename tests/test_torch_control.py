@@ -493,9 +493,13 @@ buf = torch.zeros(1 << 13)
 deadline = time.monotonic() + 90
 while time.monotonic() < deadline:
     buf[:] = rank + 1
+    # The stop flag rides the allreduce, so both ranks leave after the
+    # same one (a rank that saw the file alone would leave its peer
+    # posting into a closed ring).
+    buf[0] = float(os.path.exists(stop))
     w.allreduce(buf)
-    assert bool((buf == 3).all())
-    if os.path.exists(stop):
+    assert bool((buf[1:] == 3).all())
+    if buf[0] > 0:
         break
     time.sleep(0.02)
 w.close()

@@ -61,7 +61,8 @@ SEED = 5
 # One rank of the elastic job. argv: rank base_port steps ckpt_dir
 # die_at (0 = never) world_size coordinator_address ("" = legacy
 # pairwise rendezvous) mode ("fused" | "layered") init_weights (".npz"
-# of a state dict, "" = init_params(seed)). The kill switch counts
+# of a state dict, "" = init_params(seed)) mesh ("dp=N,tp=M", its
+# positions all on the CPU; "" = one device). The kill switch counts
 # sync calls (fused) or bucket pushes (layered).
 RANK_SCRIPT = r"""
 import json, os, signal, sys
@@ -71,6 +72,7 @@ import torch
 rank = int(sys.argv[1]); base = int(sys.argv[2]); steps = int(sys.argv[3])
 ckdir = sys.argv[4]; die_at = int(sys.argv[5]); world_sz = int(sys.argv[6])
 ctl = sys.argv[7]; mode = sys.argv[8]; init = sys.argv[9]
+mesh = sys.argv[10]
 torch.set_num_threads(1)
 
 from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
@@ -78,6 +80,7 @@ from rocnrdma_tpu_torch.collectives.world import RingWorld
 from rocnrdma_tpu_torch.parallel.checkpoint import (checkpoint_file,
                                                     restore_checkpoint,
                                                     save_checkpoint)
+from rocnrdma_tpu_torch.parallel.mesh import parse_mesh
 from rocnrdma_tpu_torch.parallel.trainer import ElasticPolicy, Trainer
 from rocnrdma_tpu_torch.transport.engine import Engine
 from rocnrdma_tpu_torch.utils.trace import trace
@@ -131,7 +134,10 @@ params = None
 if init:
     with np.load(init) as z:
         params = {k: torch.from_numpy(z[k].copy()) for k in z.files}
-tr = Trainer("llama-tiny", device="cpu", seed=5, params=params,
+shape = parse_mesh(mesh) if mesh else None
+positions = shape["dp"] * shape["tp"] if shape else 1
+tr = Trainer("llama-tiny", shape, devices=["cpu"] * positions,
+             device="cpu", seed=5, params=params,
              cross_slice_sync=KillSwitch(sync, die_at),
              elastic=ElasticPolicy(ck, save_every=1, max_resumes=6,
                                    rebuild=dict(max_attempts=20,
@@ -159,7 +165,7 @@ world.close()
 
 
 def _spawn(rank, base, ckdir, die_at, world=2, ctl="", mode="fused",
-           init=""):
+           init="", mesh=""):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -168,7 +174,8 @@ def _spawn(rank, base, ckdir, die_at, world=2, ctl="", mode="fused",
     env["TDR_RING_TIMEOUT_MS"] = "30000"
     return subprocess.Popen(
         [sys.executable, "-c", RANK_SCRIPT, str(rank), str(base),
-         str(STEPS), ckdir, str(die_at), str(world), ctl, mode, init],
+         str(STEPS), ckdir, str(die_at), str(world), ctl, mode, init,
+         mesh],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -185,19 +192,21 @@ def _finish(proc, timeout=240):
     return out
 
 
-def _run(ckdir, world, die, ctl="", mode="fused", init="", die_at=2):
+def _run(ckdir, world, die, ctl="", mode="fused", init="", die_at=2,
+         mesh=""):
     """One job: ranks in ``die`` kill themselves at their ``die_at``-th
     kill-switch tick and are restarted once they have died."""
     os.makedirs(ckdir)
     base = 0 if ctl else port_band(2 * world)
     procs = {r: _spawn(r, base, ckdir, die_at if r in die else 0, world,
-                       ctl, mode, init) for r in range(world)}
+                       ctl, mode, init, mesh) for r in range(world)}
     try:
         for r in die:
             procs[r].wait(timeout=240)
             assert procs[r].returncode == -signal.SIGKILL, \
                 (procs[r].returncode, procs[r].stderr.read()[-3000:])
-            procs[r] = _spawn(r, base, ckdir, 0, world, ctl, mode, init)
+            procs[r] = _spawn(r, base, ckdir, 0, world, ctl, mode, init,
+                              mesh)
         return {r: _finish(procs[r]) for r in range(world)}
     finally:
         for p in procs.values():

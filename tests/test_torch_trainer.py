@@ -132,17 +132,17 @@ def _assert_decided_elements_agree(trainer, jparams):
     assert decided > 0
 
 
-def test_three_steps_match_the_jax_trainer():
+def _three_steps_against_jax(**overrides):
     """Three ``Trainer.step``s on the same tokens as the JAX
-    ``Trainer("llama-tiny", {"dp": 1, "tp": 1})`` from its own initial
-    params: losses to 2e-4 at each step, the decided elements after the
-    first step to 2e-6, and the params after the third step by the count
-    in the module docstring."""
-    jt = JaxTrainer("llama-tiny", {"dp": 1, "tp": 1})
+    ``Trainer("llama-tiny", {"dp": 1, "tp": 1}, **overrides)`` from its
+    own initial params: losses to 2e-4 at each step, the decided
+    elements after the first step to 2e-6, and the params after the
+    third step by the count in the module docstring."""
+    jt = JaxTrainer("llama-tiny", {"dp": 1, "tp": 1}, **overrides)
     state0 = tllama.params_from_flax(
         jax.tree_util.tree_map(np.asarray, jt.params))
     pt = Trainer("llama-tiny", {"dp": 1, "tp": 1}, device="cpu",
-                 params=state0)
+                 params=state0, **overrides)
     tok = _tokens(2, (2, 33))
     for step in range(3):
         jl = jt.step(jnp.asarray(tok))
@@ -165,6 +165,65 @@ def test_three_steps_match_the_jax_trainer():
                                         - state0[name].numpy()).max()))
     assert far <= total // 1000, (far, total)
     assert moved > lr                         # the params did move
+
+
+def test_three_steps_match_the_jax_trainer():
+    _three_steps_against_jax()
+
+
+def test_dots_three_steps_match_the_jax_dots_trainer():
+    """The same against the JAX trainer under ``remat_policy="dots"``
+    (``nn.remat`` with ``dots_with_no_batch_dims_saveable``)."""
+    _three_steps_against_jax(remat=True, remat_policy="dots")
+
+
+@pytest.mark.parametrize("mesh", [None, {"dp": 2, "tp": 2}],
+                         ids=["single", "dp2tp2"])
+def test_dots_gives_the_gradients_of_full(tiny, mesh):
+    """``remat_policy="dots"`` keeps the projections' outputs instead of
+    recomputing them: the same values, so the gradients are bitwise
+    those of "full", on one device and on a mesh; and the step runs
+    fewer ``aten.mm`` (the kept products are not recomputed) and as many
+    ``aten.bmm`` (the attention, recomputed) as under "full"."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            key = str(func.overloadpacket)
+            self.ops[key] = self.ops.get(key, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    _, state = tiny
+    tok = torch.from_numpy(_tokens(12, (4, 17))).long()
+    grads, ops = {}, {}
+    for policy in ("full", "dots"):
+        tr = Trainer("llama-tiny", mesh, device="cpu", params=state,
+                     devices=["cpu"] * 4 if mesh else None, remat=True,
+                     remat_policy=policy)
+        tr._zero_grad()
+        with Count() as count:
+            tr._backward(tok)        # on a mesh also the copies' sums
+        ops[policy] = count.ops
+        grads[policy] = tr.grads_tree()
+    pairs = zip(jax.tree_util.tree_leaves(grads["full"]),
+                jax.tree_util.tree_leaves(grads["dots"]))
+    assert all(torch.equal(a, b) for a, b in pairs)
+    assert ops["dots"]["aten.mm"] < ops["full"]["aten.mm"]
+    assert ops["dots"]["aten.bmm"] == ops["full"]["aten.bmm"] > 0
+
+
+def test_bogus_remat_policy_raises_as_jax():
+    with pytest.raises(ValueError) as jax_err:
+        jllama.make_model("llama-tiny", remat_policy="bogus")
+    with pytest.raises(ValueError) as torch_err:
+        Trainer("llama-tiny", device="cpu", remat=True,
+                remat_policy="bogus")
+    assert str(torch_err.value) == str(jax_err.value) == (
+        "remat_policy='bogus': must be 'full' or 'dots'")
 
 
 def test_step_runs_in_the_fused_step_span_and_loss_falls():
@@ -193,33 +252,6 @@ def test_trainer_copies_the_given_weights():
         assert tr.model.state_dict()[name].data_ptr() != t.data_ptr()
 
 
-class _PerLayerSync:
-    """A sync offering the per-layer entry (``per_layer`` and
-    ``start_layered``), as ``CrossSliceAllReduce(per_layer=True)``."""
-
-    per_layer = True
-
-    def start_layered(self, plan):
-        raise AssertionError("never reached")
-
-    def __call__(self, tree):
-        return tree
-
-
-@pytest.mark.parametrize("kwargs,item", [
-    (dict(mesh_shape={"dp": 1, "tp": 2}, devices=["cpu"] * 2,
-          cross_slice_sync=_PerLayerSync()), "item 7"),
-    (dict(mesh_shape={"dp": 2, "tp": 1}, devices=["cpu"] * 2,
-          cross_slice_sync=lambda tree: tree,
-          elastic=ElasticPolicy("unused")), "item 7"),
-])
-def test_unported_options_raise(kwargs, item):
-    """On a mesh of more than one position the per-layer sync and the
-    elastic policy are not ported yet and name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=item):
-        Trainer("llama-tiny", device="cpu", **kwargs)
-
-
 @pytest.mark.parametrize("mesh_shape,devices", [
     (None, None),
     ({"dp": 2, "tp": 1}, ["cpu"] * 2),
@@ -227,8 +259,7 @@ def test_unported_options_raise(kwargs, item):
 def test_elastic_without_sync_refused_as_jax(mesh_shape, devices):
     """``elastic=`` without ``cross_slice_sync`` has no transport world
     to recover: the port refuses it as the JAX trainer does, with the same
-    type and message, on one device and on a mesh (before the mesh's own
-    refusal of the elastic policy)."""
+    type and message, on one device and on a mesh."""
     with pytest.raises(ValueError) as jax_err:
         JaxTrainer("llama-tiny", mesh_shape or {"dp": 1, "tp": 1},
                    elastic=JaxElasticPolicy("unused"))

@@ -15,8 +15,10 @@ Prints one JSON line per kill, then the card's name and power limit:
 rank 0's failure (its postmortem's error), the seconds from the kill to
 rank 0's resume, rank 0's rebuild and restore ms, the restarted rank's
 rendezvous attempts and seconds from its start to its world, whether
-every step's digests agree on both ranks, and the kill's seconds in
-all. Exits 1 if a kill did not recover.
+every step's digests agree on both ranks, the kill's seconds in all,
+and the stacks of every thread of a resuming rank, dumped every 30 s
+while its trainer resumes (``faulthandler``; a resume shorter than 30 s
+leaves only its start and end). Exits 1 if a kill did not recover.
 
 Needs a CUDA card; runs from the root of a checkout.
 """
@@ -44,9 +46,12 @@ def one_kill(late_s: float) -> dict:
     coord, addr = cs.start_coordinator()
     t0 = time.monotonic()
     try:
-        outs, dead, started = cs.run_elastic(addr, root, late_s)
+        outs, dead, started = cs.run_elastic(
+            addr, root, late_s,
+            env={"TDR_RESUME_STACKS": str(Path(root, "stacks"))})
         errors = [json.loads(f.read_text()).get("error") for f in sorted(
             Path(root, "postmortem").glob("*/incident-g*/rank0.json"))]
+        stacks = [f.read_text() for f in sorted(Path(root).glob("stacks.*"))]
     finally:
         cs.stop(coord)
         shutil.rmtree(root, ignore_errors=True)
@@ -69,7 +74,7 @@ def one_kill(late_s: float) -> dict:
             - started,
             "digests_equal_every_step": all(len(d) == 1
                                             for d in digests.values()),
-            "kill_s": time.monotonic() - t0}
+            "kill_s": time.monotonic() - t0, "resume_stacks": stacks}
 
 
 def main() -> int:
