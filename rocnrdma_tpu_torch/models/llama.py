@@ -29,6 +29,16 @@ Where the kernels run:
   f32 scores, softmax, probs cast to the model dtype before the value
   product.
 
+``pos`` is a Python int or a 0-d int64 tensor on the model's device
+(the JAX package's traced ``pos``). Either way the RoPE angles come by
+``index_select`` and K/V are written by ``index_copy_`` at ``pos +
+arange(s)``, and the product runs under the mask ``arange(T) <= q_pos``
+(:func:`cached_attention`); an int position 0 goes through K3 instead,
+and an int ``pos`` cuts the keys to the prefix. With a tensor the
+product runs over the whole cache, so no shape depends on ``pos``:
+``generate`` captures one decode step as a CUDA graph and replays it
+(:class:`DecodeLoop`).
+
 Weight layout: every projection keeps flax's ``Dense`` layout
 ``(in, out)`` and is applied as ``x @ W`` — no transpose anywhere, so
 :func:`params_from_flax` and the serving pages share one layout. The KV
@@ -39,8 +49,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
-from typing import Any, Dict, List, Optional
+import weakref
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -51,13 +63,15 @@ import torch.utils.checkpoint
 from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
+from ..utils.graphs import CapturedStep
 
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_TINY", "CONFIGS",
     "rope_freqs", "apply_rope", "project_qkv", "out_proj", "swiglu",
     "checkpoint_block",
     "RMSNorm", "Attention", "MLP", "Block",
-    "Llama", "init_cache", "init_params", "generate", "param_names",
+    "Llama", "init_cache", "init_params", "generate", "DecodeLoop",
+    "param_names",
     "flax_tree", "params_from_flax", "params_to_flax", "cross_entropy_loss",
 ]
 
@@ -223,40 +237,49 @@ class Attention(nn.Module):
 
     def attend(self, x: torch.Tensor, freqs: torch.Tensor,
                cache: Optional[Dict[str, torch.Tensor]] = None,
-               pos: int = 0) -> torch.Tensor:
+               pos: Union[int, torch.Tensor] = 0) -> torch.Tensor:
         """(B, S, D) normed input → the attention output (B, H, S, hd)
         before ``out_proj``; with ``cache``, at absolute position
-        ``pos``, writing K/V into the cache in place."""
+        ``pos`` (an int, or a 0-d int64 tensor on x's device), writing
+        K/V into the cache in place."""
         s = x.shape[1]
         if cache is None:
             q, k, v = self.qkv(x, freqs[:s])
             return attention(q, k, v, causal=True)
-        q, k, v = self.qkv(x, freqs[pos:pos + s])
-        cache["k"][:, :, pos:pos + s] = k.to(cache["k"].dtype)
-        cache["v"][:, :, pos:pos + s] = v.to(cache["v"].dtype)
-        if pos == 0:
+        dev = x.device
+        if isinstance(pos, torch.Tensor):
+            q_pos, t = pos + torch.arange(s, device=dev), cache["k"].shape[2]
+        else:
+            q_pos, t = torch.arange(pos, pos + s, device=dev), pos + s
+        q, k, v = self.qkv(x, freqs.index_select(0, q_pos))
+        cache["k"].index_copy_(2, q_pos, k.to(cache["k"].dtype))
+        cache["v"].index_copy_(2, q_pos, v.to(cache["v"].dtype))
+        if not isinstance(pos, torch.Tensor) and pos == 0:
             return attention(q, k, v, causal=True)
-        return cached_attention(q, cache["k"][:, :, :pos + s],
-                                cache["v"][:, :, :pos + s], pos)
+        return cached_attention(q, cache["k"][:, :, :t], cache["v"][:, :, :t],
+                                q_pos)
 
 
 def cached_attention(q: torch.Tensor, k_all: torch.Tensor,
-                     v_all: torch.Tensor, pos: int) -> torch.Tensor:
-    """Plain grouped-query attention of q (B, H, s, hd) at absolute
-    position ``pos`` against the cache prefix k_all/v_all
-    (B, KVH, pos + s, hd). Keys past the prefix are exactly the masked
-    (zero-weight) keys of the JAX package's full-cache product, so
-    cutting them changes nothing."""
+                     v_all: torch.Tensor,
+                     q_pos: torch.Tensor) -> torch.Tensor:
+    """Plain grouped-query attention of q (B, H, s, hd) at the absolute
+    positions ``q_pos`` (s,) against the cache k_all/v_all (B, KVH, T,
+    hd), keys past each query masked: the JAX package's decode product
+    (``arange(T) <= q_pos``). T is the whole cache (the static-shape
+    step) or the prefix up to the last query (an int ``pos``): the keys
+    past the prefix are masked keys, which weigh exactly zero. f32
+    scores, probs cast to q's dtype before the value product."""
     b, h, s, hd = q.shape
     kvh, t = k_all.shape[1], k_all.shape[2]
+    rep = h // kvh
     # The group is folded into the query rows (b, kvh, rep * s, hd), so
     # the cache is never repeated per query head.
-    qg = q.float().reshape(b, kvh, (h // kvh) * s, hd)
+    qg = q.float().reshape(b, kvh, rep * s, hd)
     scores = (qg @ k_all.float().transpose(-1, -2)) / math.sqrt(hd)
-    if s > 1:
-        q_pos = pos + torch.arange(s, device=q.device).repeat(h // kvh)
-        visible = torch.arange(t, device=q.device)[None, :] <= q_pos[:, None]
-        scores = scores.masked_fill(~visible, float("-inf"))
+    visible = (torch.arange(t, device=q.device)[None, :]
+               <= q_pos.repeat(rep)[:, None])
+    scores = scores.masked_fill(~visible, float("-inf"))
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     o = probs.float() @ v_all.float()
     return o.to(q.dtype).reshape(b, h, s, hd)
@@ -300,7 +323,7 @@ class Block(nn.Module):
         y = x + self.attn.out_proj(o)
         return y + self.mlp(self.mlp_norm(y))
 
-    def forward(self, x, freqs, cache=None, pos: int = 0):
+    def forward(self, x, freqs, cache=None, pos: Union[int, torch.Tensor] = 0):
         return self.post(x, self.attn.attend(self.attn_norm(x), freqs,
                                              cache, pos))
 
@@ -329,10 +352,12 @@ class Llama(nn.Module):
 
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[Dict[str, torch.Tensor]]] = None,
-                pos: int = 0) -> torch.Tensor:
+                pos: Union[int, torch.Tensor] = 0) -> torch.Tensor:
         """tokens (B, S) → logits (B, S, vocab) f32. With ``cache``
         (from :func:`init_cache`), runs incrementally at absolute
-        position ``pos`` and writes K/V into the cache in place."""
+        position ``pos`` and writes K/V into the cache in place; a 0-d
+        int64 ``pos`` tensor on the model's device gives the
+        static-shape step (module docstring)."""
         cfg = self.cfg
         if tokens.shape[-1] > cfg.max_seq_len:
             raise ValueError(
@@ -392,6 +417,191 @@ def init_params(cfg: LlamaConfig, seed: int = 0,
     return model.state_dict()
 
 
+def _cache_len(cfg: LlamaConfig, total: int) -> int:
+    """The JAX package's cache size: the smallest multiple of 128
+    covering prompt + new tokens, at most ``max_seq_len``."""
+    return min(cfg.max_seq_len, ((total + 127) // 128) * 128)
+
+
+def _pick(logits_last: torch.Tensor, temperature: float,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The next token from the last position's logits (B, vocab): argmax
+    at temperature 0, else a categorical draw from ``generator`` by the
+    exponential race that ``torch.multinomial`` takes for one sample,
+    ``argmax(p / E)`` with ``E ~ Exp(1)``, with no host-side check."""
+    if temperature <= 0.0:
+        return torch.argmax(logits_last, dim=-1)
+    probs = torch.softmax(logits_last / temperature, dim=-1)
+    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / race, dim=-1)
+
+
+def _default_generator(dev: torch.device) -> torch.Generator:
+    if dev.type == "cuda":
+        return torch.cuda.default_generators[dev.index]
+    return torch.default_generator
+
+
+class DecodeLoop:
+    """The compiled decode of :func:`generate`: static cache, token and
+    position buffers for ``b`` sequences of up to ``cache_len`` positions,
+    and one decode step over them, captured as a CUDA graph at its first
+    call and replayed after (:class:`~rocnrdma_tpu_torch.utils.graphs.
+    CapturedStep`; on the CPU the step runs uncaptured).
+
+    The step reads the token buffer and the position ``pos`` (a 0-d
+    tensor on the device), runs the tensor-``pos`` forward, picks the
+    next token (:func:`_pick`), writes it into the token buffer and into
+    the output at ``pos - p + 1``, and advances ``pos``, all on the
+    device: the host only replays. ``capture=False`` runs the same step
+    uncaptured on the card (to hold the graph against it).
+
+    Sampling draws from the loop's own generator, registered with the
+    graph; :meth:`run` copies the caller's generator state into it and
+    writes the advanced state back, so the caller's generator moves as
+    if the draws had been its own and one loop serves every generator.
+
+    The model is held weakly, and the step holds no reference to the
+    loop, so dropping the loop frees its buffers and its graph at once.
+    Buffers are inference tensors, made and updated under
+    ``torch.inference_mode()``."""
+
+    def __init__(self, model: Llama, b: int, cache_len: int,
+                 temperature: float = 0.0, capture: bool = True) -> None:
+        dev = model.device
+        self.model = weakref.ref(model, _drop_dead_loops)
+        self.temperature = float(temperature)
+        self.generator = torch.Generator(device=dev)
+        with torch.inference_mode():
+            self.cache = init_cache(model.cfg, b, cache_len, dev)
+            self.tok = torch.zeros(b, dtype=torch.long, device=dev)
+            self.pos = torch.zeros((), dtype=torch.long, device=dev)
+            self.start = torch.zeros((), dtype=torch.long, device=dev)
+            # Column j holds new token j; pos - start + 1 < cache_len.
+            self.out = torch.zeros((b, cache_len), dtype=torch.long,
+                                   device=dev)
+        step = functools.partial(
+            _decode_step, self.model, self.cache, self.tok, self.pos,
+            self.start, self.out, self.temperature, self.generator)
+        gens = ([self.generator] if dev.type == "cuda"
+                and self.temperature > 0.0 else [])
+        self.step = (CapturedStep(step, dev, generators=gens)
+                     if capture else step)
+
+    @property
+    def alive(self) -> bool:
+        return self.model() is not None
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the static buffers (the cache dominates)."""
+        return sum(t.nbytes for t in itertools.chain(
+            (c[kv] for c in self.cache for kv in ("k", "v")),
+            (self.tok, self.pos, self.start, self.out)))
+
+    def start_sequence(self, prompt: torch.Tensor) -> None:
+        """Zero the cache, prefill ``prompt`` (B, P) eagerly (position
+        0: K3 on the card) and pick the first token; the decode steps
+        then continue from position P."""
+        p = prompt.shape[1]
+        with torch.inference_mode():
+            for c in self.cache:
+                c["k"].zero_()
+                c["v"].zero_()
+            first = _pick(self.model()(prompt, self.cache, 0)[:, -1],
+                          self.temperature, self.generator)
+            self.tok.copy_(first)
+            self.out[:, 0].copy_(first)
+            self.pos.fill_(p)
+            self.start.fill_(p)
+
+    def tokens(self, n: int) -> torch.Tensor:
+        """The first ``n`` tokens of the sequence, (B, n) int64."""
+        with torch.inference_mode():
+            return self.out[:, :n].clone()
+
+    def run(self, prompt: torch.Tensor, max_new_tokens: int,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Prefill ``prompt``, then ``max_new_tokens - 1`` decode steps:
+        the new tokens (B, max_new_tokens). At temperature > 0 the draws
+        come from ``generator`` (default: the device's default
+        generator), through the loop's own one."""
+        source = None
+        if self.temperature > 0.0:
+            source = generator or _default_generator(self.tok.device)
+            self.generator.set_state(source.get_state())
+        self.start_sequence(prompt)
+        for _ in range(max_new_tokens - 1):
+            self.step()
+        if source is not None:
+            source.set_state(self.generator.get_state())
+        return self.tokens(max_new_tokens)
+
+
+def _decode_step(model_ref, cache, tok, pos, start, out, temperature,
+                 generator) -> None:
+    """One step of :class:`DecodeLoop` over its static buffers."""
+    with torch.inference_mode():
+        logits = model_ref()(tok[:, None], cache, pos)
+        nxt = _pick(logits[:, -1], temperature, generator)
+        tok.copy_(nxt)
+        out.index_copy_(1, (pos - start + 1).view(1), nxt[:, None])
+        pos.add_(1)
+
+
+# Bounded FIFO of decode loops, as the JAX package's memo of jitted
+# loops: one entry per key, the oldest evicted first. Unlike a jitted
+# executable an entry holds device memory (its cache and its graph), so
+# the memo is bounded by the bytes of its static buffers too, and an
+# entry goes as soon as its model does.
+_GEN_CACHE: Dict[tuple, DecodeLoop] = {}
+_GEN_CACHE_MAX = 32
+_GEN_CACHE_MAX_BYTES = 8 << 30
+
+
+def _gen_key(model: Llama, b: int, cache_len: int,
+             temperature: float) -> tuple:
+    """Everything a captured step bakes in: the model and the storage of
+    its parameters and buffers (a ``load_state_dict(assign=True)``
+    moves it, and a graph would read the freed storage), the shapes and
+    the temperature. Not the generator: :meth:`DecodeLoop.run` copies
+    its state in and out."""
+    storage = tuple((t.data_ptr(), t.dtype, tuple(t.shape))
+                    for t in itertools.chain(model.parameters(),
+                                             model.buffers()))
+    return (id(model), model.cfg, storage, b, cache_len, float(temperature))
+
+
+def _drop_dead_loops(_ref=None) -> None:
+    """Drop the memo's loops whose model is gone (the callback of every
+    loop's weakref to its model)."""
+    for key, loop in list(_GEN_CACHE.items()):
+        if not loop.alive:
+            _GEN_CACHE.pop(key, None)
+
+
+def _decode_loop(model: Llama, b: int, cache_len: int,
+                 temperature: float) -> DecodeLoop:
+    key = _gen_key(model, b, cache_len, temperature)
+    loop = _GEN_CACHE.get(key)
+    # An id may be reused once its object is gone: a hit counts only if
+    # it is the same model.
+    if loop is not None and loop.model() is model:
+        return loop
+    _GEN_CACHE.pop(key, None)
+    cfg = model.cfg
+    need = 2 * cfg.n_layers * b * cfg.n_kv_heads * cache_len * \
+        cfg.head_dim * cfg.dtype.itemsize
+    while _GEN_CACHE and (
+            len(_GEN_CACHE) >= _GEN_CACHE_MAX
+            or need + sum(v.nbytes for v in _GEN_CACHE.values())
+            > _GEN_CACHE_MAX_BYTES):
+        _GEN_CACHE.pop(next(iter(_GEN_CACHE)))
+    loop = DecodeLoop(model, b, cache_len, temperature)
+    _GEN_CACHE[key] = loop
+    return loop
+
+
 def generate(model: Llama, prompt, max_new_tokens: int,
              temperature: float = 0.0,
              generator: Optional[torch.Generator] = None,
@@ -400,9 +610,22 @@ def generate(model: Llama, prompt, max_new_tokens: int,
 
     prompt: (B, P) token ids. Returns (B, max_new_tokens) int64 on
     ``device``, which must be where ``model`` lives. Greedy at
-    temperature 0, else categorical sampling with ``generator``. The
-    cache is sized like the JAX package's: the smallest multiple of 128
-    covering prompt + new tokens."""
+    temperature 0, else categorical sampling with ``generator`` (default:
+    the device's default generator). The cache is sized like the JAX
+    package's: the smallest multiple of 128 covering prompt + new tokens.
+
+    The prefill runs eagerly (K3 on the card); the decode steps are
+    replays of one captured step (:class:`DecodeLoop`), the counterpart
+    of the JAX package's jitted ``lax.scan``. Loops are memoized in a
+    bounded FIFO of 32 entries, and of at most ``_GEN_CACHE_MAX_BYTES``
+    of static buffers, keyed on what the graph bakes in (the model and
+    its parameters' storage, B, the cache length, the temperature), so
+    repeated calls reuse the captured step; the generator is an argument
+    of the call, as the JAX loop's rng key is. The JAX memo also keys on
+    P and ``max_new_tokens``; the port's step depends on neither, so one
+    entry serves every prompt length whose prompt + new tokens round to
+    the same cache length. The cache is zeroed at each call, and an
+    entry is dropped as soon as its model is."""
     dev = resolve_device(device)
     mdev = model.device
     if mdev.type != dev.type or (dev.index is not None
@@ -418,22 +641,8 @@ def generate(model: Llama, prompt, max_new_tokens: int,
                          f"max_seq_len={cfg.max_seq_len}")
     if max_new_tokens <= 0:
         return torch.zeros((b, 0), dtype=torch.long, device=mdev)
-
-    def pick(logits_last: torch.Tensor) -> torch.Tensor:
-        if temperature <= 0.0:
-            return torch.argmax(logits_last, dim=-1)
-        probs = torch.softmax(logits_last / temperature, dim=-1)
-        return torch.multinomial(probs, 1, generator=generator)[:, 0]
-
-    with torch.inference_mode():
-        cache_len = min(cfg.max_seq_len, ((total + 127) // 128) * 128)
-        cache = init_cache(cfg, b, cache_len, mdev)
-        tok = pick(model(prompt, cache, 0)[:, -1])
-        out = [tok]
-        for i in range(1, max_new_tokens):
-            tok = pick(model(tok[:, None], cache, p + i - 1)[:, -1])
-            out.append(tok)
-        return torch.stack(out, dim=1)
+    loop = _decode_loop(model, b, _cache_len(cfg, total), temperature)
+    return loop.run(prompt, max_new_tokens, generator)
 
 
 # ------------------------------------------------------------ weight bridge

@@ -28,7 +28,12 @@ dtype)``, the instance the entry launches, from the same dispatch code
 
 Launch counters: each wrapper calls :func:`count` once where it launches
 its kernel and nowhere else, so a run can show which kernels its path
-went through (:func:`launches`, :func:`reset_launches`).
+went through (:func:`launches`, :func:`reset_launches`). A CUDA graph
+launches its kernels without calling the wrappers: a capture launches
+nothing, so what its thread counts while it records goes into a tally of
+its own (:func:`tally_launches`), and
+:class:`~rocnrdma_tpu_torch.utils.graphs.CapturedStep` counts that tally
+at every replay (``count(name, n)``).
 """
 
 from __future__ import annotations
@@ -40,8 +45,9 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, Iterator, List
 
 import torch
 
@@ -80,6 +86,8 @@ ROUTE_NAMES = {1: "tensor_core", 0: "scalar"}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in KERNELS}
+# This thread's open tally (tally_launches), if any.
+_local = threading.local()
 
 
 def nvcc() -> str:
@@ -216,8 +224,24 @@ def stream_handle(device) -> int:
     return int(torch.cuda.current_stream(device).cuda_stream)
 
 
-def count(name: str) -> None:
-    _launches[name] += 1
+def count(name: str, n: int = 1) -> None:
+    tally = getattr(_local, "tally", None)
+    if tally is None:
+        _launches[name] += n
+    else:
+        tally[name] = tally.get(name, 0) + n
+
+
+@contextmanager
+def tally_launches() -> Iterator[Dict[str, int]]:
+    """What this thread counts inside the block goes into the yielded
+    dict instead of :func:`launches`: the launches a graph capture
+    records (and does not make). Other threads count as ever."""
+    prev, _local.tally = getattr(_local, "tally", None), {}
+    try:
+        yield _local.tally
+    finally:
+        _local.tally = prev
 
 
 def launches() -> Dict[str, int]:

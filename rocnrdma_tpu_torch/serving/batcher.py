@@ -38,7 +38,7 @@ import torch
 
 from .. import DeviceLike
 from ..utils.trace import trace
-from .model import PagedDecoder, ServeConfig
+from .model import JitPagedDecoder, PagedDecoder, ServeConfig
 from .pager import KVStream, PageSet, WeightStreamer
 from .stream import make_stream_coll
 
@@ -84,23 +84,31 @@ class ContinuousBatcher:
     baseline the bench compares against; tokens are bitwise identical
     either way (the page bytes are, and the math doesn't move).
 
+    ``jit_decode=True`` decodes through :class:`~.model.JitPagedDecoder`
+    (the JAX package's argument, in its position): each decode layer
+    step replayed as a CUDA graph over pooled caches, which the batcher
+    hands back when a request finishes or is evicted. Same tokens up to
+    near-ties (the masked product sums over the whole cache).
+
     ``device`` is where the decoder computes: the card unless the
     caller asks for the CPU.
     """
 
     def __init__(self, world: Any, pages: PageSet, cfg: ServeConfig,
                  max_slots: int = 4, depth: Optional[int] = None,
-                 prefetch: bool = True,
+                 prefetch: bool = True, jit_decode: bool = False,
                  device: DeviceLike = "cuda") -> None:
         self.world = world
         self.cfg = cfg
-        self.decoder = PagedDecoder(cfg, device)
+        self.max_slots = int(max_slots)
+        self.decoder = (JitPagedDecoder(cfg, device, max_caches=(
+            self.max_slots * cfg.n_layers)) if jit_decode
+            else PagedDecoder(cfg, device))
         self.prefetch = bool(prefetch)
         self.streamer = WeightStreamer(world, pages, depth=depth,
                                        name="weights")
         kv_elems = (2 * cfg.n_kv_heads * cfg.max_seq_len * cfg.head_dim)
         self.kv = KVStream(world, max_elems=max(kv_elems, 8), name="kv")
-        self.max_slots = int(max_slots)
         self.slots: List[Optional[_Slot]] = [None] * self.max_slots
         self.queue: Deque[Request] = collections.deque()
         self.finished: Dict[int, Request] = {}
@@ -195,6 +203,8 @@ class ContinuousBatcher:
                 self._evict_asap.discard(r.id)
                 self.finished[r.id] = r
                 self.slots[i] = None
+                for c in slot.cache.values():
+                    self.decoder.release_cache(c)
                 trace.event("serve.evict", req=r.id,
                             tokens=len(r.tokens),
                             evicted=bool(r.evicted))

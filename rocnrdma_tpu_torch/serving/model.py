@@ -7,20 +7,23 @@ page layout, :func:`pack_pages`, :func:`pack_llama_params` and
 :func:`toy_param_tree` are the JAX package's, copied as they are
 (numpy), so both packages pack identical bytes.
 
-:class:`PagedDecoder` takes the place of both the numpy and the jitted
-decoder of the JAX package. Each step the batcher hands it each
-acquired page once (:meth:`PagedDecoder.upload` copies it to the device
-and returns when the copy is done, so the host window may be reused at
-once); per-request KV caches live on the device. Its norms run through
-the K1 kernel and its position-0 prefill through the K3 kernel; decode
-keeps the plain grouped-query product against the cache, in f32 like
-the numpy decoder.
+:class:`PagedDecoder` takes the place of the JAX package's numpy
+decoder. Each step the batcher hands it each acquired page once
+(:meth:`PagedDecoder.upload` copies it to the device and returns when
+the copy is done, so the host window may be reused at once); per-request
+KV caches live on the device. Its norms run through the K1 kernel and
+its position-0 prefill through the K3 kernel; decode keeps the plain
+grouped-query product against the cache, in f32 like the numpy decoder.
+:class:`JitPagedDecoder` is the counterpart of the JAX package's jitted
+decoder (``ContinuousBatcher(jit_decode=True)``): the same math, its
+decode layer steps replayed as CUDA graphs over static buffers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -28,13 +31,14 @@ import torch
 from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
+from ..utils.graphs import CapturedStep
 from ..utils.trace import trace
 from .pager import PageSet
 
 __all__ = [
     "ServeConfig", "page_names", "pack_pages", "pack_llama_params",
     "toy_param_tree", "unpack_embed", "unpack_layer", "unpack_head",
-    "PagedDecoder",
+    "PagedDecoder", "JitPagedDecoder",
 ]
 
 
@@ -243,11 +247,16 @@ class PagedDecoder:
                 "v": torch.zeros(shape, dtype=torch.float32,
                                  device=self.device)}
 
-    def _rope(self, x: torch.Tensor, pos: int) -> torch.Tensor:
-        # x: (H, s, hd) — split-half rotation, f32 throughout.
-        s = x.shape[1]
-        cos = self._cos[pos:pos + s][None]
-        sin = self._sin[pos:pos + s][None]
+    def release_cache(self, cache: Dict[str, torch.Tensor]) -> None:
+        """Hand back a finished request's cache: nothing to do here,
+        the cache is garbage once the batcher drops it
+        (:class:`JitPagedDecoder` pools its caches)."""
+
+    def _rope(self, x: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+        # x: (H, s, hd) at the positions q_pos (s,) — split-half
+        # rotation, f32 throughout.
+        cos = self._cos.index_select(0, q_pos)[None]
+        sin = self._sin.index_select(0, q_pos)[None]
         x1, x2 = x.chunk(2, dim=-1)
         return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -258,9 +267,14 @@ class PagedDecoder:
         return emb[idx]                                   # (s, D)
 
     def layer(self, layer_page: torch.Tensor, x: torch.Tensor,
-              cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+              cache: Dict[str, torch.Tensor],
+              pos: Union[int, torch.Tensor]) -> torch.Tensor:
         """One transformer block over ``x`` (s, D) at absolute position
-        ``pos``, writing K/V into ``cache``."""
+        ``pos``, writing K/V into ``cache``. An int ``pos`` attends over
+        the cache prefix (K3 at position 0); a 0-d int64 tensor on the
+        device gives the static-shape step of the JAX package's jitted
+        decoder: K/V written by ``index_copy_``, the product over the
+        whole cache under its mask."""
         cfg = self.cfg
         w = unpack_layer(cfg, layer_page)
         s = x.shape[0]
@@ -270,26 +284,35 @@ class PagedDecoder:
         q = (h @ w["wq"]).view(s, cfg.n_heads, hd).transpose(0, 1)
         k = (h @ w["wk"]).view(s, cfg.n_kv_heads, hd).transpose(0, 1)
         v = (h @ w["wv"]).view(s, cfg.n_kv_heads, hd).transpose(0, 1)
-        q = self._rope(q, pos)
-        k = self._rope(k, pos)
-        cache["k"][:, pos:pos + s] = k
-        cache["v"][:, pos:pos + s] = v
-        if pos == 0:
+        if isinstance(pos, torch.Tensor):
+            q_pos = pos + torch.arange(s, device=x.device)
+            t = cfg.max_seq_len
+        else:
+            q_pos = torch.arange(pos, pos + s, device=x.device)
+            t = pos + s
+        q = self._rope(q, q_pos)
+        k = self._rope(k, q_pos)
+        cache["k"].index_copy_(1, q_pos, k)
+        cache["v"].index_copy_(1, q_pos, v)
+        if not isinstance(pos, torch.Tensor) and pos == 0:
             o = attention(q[None], k[None], v[None], causal=True)[0]
         else:
-            o = self._cached_attention(q, cache["k"][:, :pos + s],
-                                       cache["v"][:, :pos + s], pos)
+            o = self._cached_attention(q, cache["k"][:, :t],
+                                       cache["v"][:, :t], q_pos)
         x = x + o.transpose(0, 1).reshape(s, cfg.n_heads * hd) @ w["wo"]
-
         h = rmsnorm(x, w["mlp_norm"], cfg.norm_eps)
         g = h @ w["w_gate"]
         return x + ((g * (1.0 / (1.0 + torch.exp(-g))))
                     * (h @ w["w_up"])) @ w["w_down"]
 
     def _cached_attention(self, q: torch.Tensor, k_all: torch.Tensor,
-                          v_all: torch.Tensor, pos: int) -> torch.Tensor:
-        """q (H, s, hd) against the cache prefix (KVH, pos + s, hd);
-        the keys past the prefix are the ones the numpy decoder masks."""
+                          v_all: torch.Tensor,
+                          q_pos: torch.Tensor) -> torch.Tensor:
+        """q (H, s, hd) at the positions ``q_pos`` against the cache
+        (KVH, T, hd), each query's later keys masked: the numpy
+        decoder's product. T is the whole cache (the static-shape step)
+        or the prefix up to the last query (an int ``pos``; the keys
+        past it are masked keys, which weigh exactly zero)."""
         cfg = self.cfg
         s, hd = q.shape[1], q.shape[2]
         rep = cfg.n_heads // cfg.n_kv_heads
@@ -297,11 +320,9 @@ class PagedDecoder:
         qg = q.reshape(cfg.n_kv_heads, rep * s, hd)
         scores = (qg @ k_all.transpose(-1, -2)) / float(
             np.sqrt(np.float32(hd)))
-        if s > 1:
-            q_pos = pos + torch.arange(s, device=q.device).repeat(rep)
-            visible = (torch.arange(k_all.shape[1], device=q.device)[None, :]
-                       <= q_pos[:, None])
-            scores = scores.masked_fill(~visible, float("-inf"))
+        visible = (torch.arange(k_all.shape[1], device=q.device)[None, :]
+                   <= q_pos.repeat(rep)[:, None])
+        scores = scores.masked_fill(~visible, float("-inf"))
         probs = torch.softmax(scores, dim=-1)
         return (probs @ v_all).reshape(cfg.n_heads, s, hd)
 
@@ -324,3 +345,134 @@ class PagedDecoder:
         """Write received prefill K/V into the first ``p`` positions."""
         cache["k"][:, :p] = torch.from_numpy(np.asarray(k)).to(self.device)
         cache["v"][:, :p] = torch.from_numpy(np.asarray(v)).to(self.device)
+
+
+class JitPagedDecoder(PagedDecoder):
+    """The paged decoder with its decode layer steps replayed as CUDA
+    graphs: the counterpart of the JAX package's ``JitPagedDecoder``
+    (``ContinuousBatcher(jit_decode=True)``). Same page layout, same
+    math, same cache-dict contract as :class:`PagedDecoder`.
+
+    - **Decode (``s == 1``)**: one layer step over static device
+      buffers: a page buffer per page size (:meth:`upload` copies each
+      landed page into the buffer of its kind — embed, layer, head —
+      and still returns after the window has been read), the activation
+      and a device ``pos``, attending over the whole ``max_seq_len``
+      cache under the numpy decoder's mask. The step is captured at its
+      first call for a cache and replayed after
+      (:class:`~rocnrdma_tpu_torch.utils.graphs.CapturedStep`; on the
+      CPU it runs uncaptured). The capture's ``"thread_local"`` mode
+      lets the world's progress threads and the other ranks' threads of
+      wire mode keep running.
+    - **Prefill (``s > 1``)** runs :meth:`PagedDecoder.layer` eagerly
+      (K3 at position 0). JAX compiles one executable per prompt length;
+      a request's prompt length comes once, so a capture per length
+      would cost more than the one replay it buys.
+    - **Cache identity.** JAX donates the caches, so any buffer can be
+      passed in; a CUDA graph bakes the caches' addresses in. So
+      :meth:`new_cache` hands out buffer pairs from a pool the decoder
+      owns, at most ``max_caches`` of them (the batcher passes
+      ``max_slots × n_layers``), with one graph per pair, and
+      :meth:`release_cache` takes a finished request's pairs back: the
+      pool and the number of graphs stay bounded. A reused pair is
+      zeroed. :meth:`load_kv` and :meth:`dump_kv` work in place on
+      pooled buffers.
+
+    Greedy tokens match :class:`PagedDecoder`'s; logits may differ in
+    the last ulp (the masked product sums over the whole cache, the
+    eager one over its prefix), which greedy argmax sees only at a
+    near-tie."""
+
+    def __init__(self, cfg: ServeConfig, device: DeviceLike = "cuda",
+                 max_caches: Optional[int] = None) -> None:
+        super().__init__(cfg, device)
+        self.max_caches = max_caches
+        f32 = dict(dtype=torch.float32, device=self.device)
+        self._pages: Dict[int, torch.Tensor] = {}
+        self._caches: Dict[int, Dict[str, torch.Tensor]] = {}
+        self._free: List[Dict[str, torch.Tensor]] = []
+        self._steps: Dict[int, CapturedStep] = {}
+        self._x = torch.zeros((1, cfg.d_model), **f32)
+        self._y = torch.zeros((1, cfg.d_model), **f32)
+        self._pos = torch.zeros((), dtype=torch.long, device=self.device)
+        # Every step writes its result into _y, so the graphs' own
+        # allocations are all freed inside their capture: one pool.
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self.device.type == "cuda" else None)
+
+    @property
+    def graphs(self) -> int:
+        """Layer steps captured so far (one per pooled cache pair)."""
+        return sum(st.graph is not None for st in self._steps.values())
+
+    @property
+    def pool_bytes(self) -> int:
+        """Device bytes of the pooled K/V caches."""
+        return sum(c["k"].nbytes + c["v"].nbytes
+                   for c in self._caches.values())
+
+    def _page_buffer(self, n: int) -> torch.Tensor:
+        buf = self._pages.get(n)
+        if buf is None:
+            buf = self._pages[n] = torch.empty(n, dtype=torch.float32,
+                                               device=self.device)
+        return buf
+
+    def upload(self, page: np.ndarray) -> torch.Tensor:
+        """Copy one landed host page into the static buffer of its size
+        (its kind). Returns after the copy has read the whole page."""
+        buf = self._page_buffer(page.size)
+        with trace.span("serve.upload", bytes=page.nbytes):
+            buf.copy_(torch.from_numpy(page))
+        return buf
+
+    def new_cache(self) -> Dict[str, torch.Tensor]:
+        if self._free:
+            cache = self._free.pop()
+            cache["k"].zero_()
+            cache["v"].zero_()
+            return cache
+        if self.max_caches is not None and \
+                len(self._caches) >= self.max_caches:
+            raise RuntimeError(f"JitPagedDecoder: all {self.max_caches} "
+                               "pooled caches are in use")
+        cache = super().new_cache()
+        self._caches[cache["k"].data_ptr()] = cache
+        return cache
+
+    def _pooled(self, cache: Dict[str, torch.Tensor]) -> int:
+        key = cache["k"].data_ptr()
+        if self._caches.get(key) is not cache:
+            raise ValueError("JitPagedDecoder: the cache is not one of "
+                             "this decoder's new_cache() pairs")
+        return key
+
+    def release_cache(self, cache: Dict[str, torch.Tensor]) -> None:
+        """Take a finished request's cache back into the pool."""
+        self._pooled(cache)
+        if any(c is cache for c in self._free):
+            raise ValueError("JitPagedDecoder: cache released twice")
+        self._free.append(cache)
+
+    def layer(self, layer_page: torch.Tensor, x: torch.Tensor,
+              cache: Dict[str, torch.Tensor], pos: int) -> torch.Tensor:
+        if x.shape[0] != 1:
+            return super().layer(layer_page, x, cache, pos)
+        key = self._pooled(cache)
+        page = self._page_buffer(layer_page.numel())
+        if page.data_ptr() != layer_page.data_ptr():
+            page.copy_(layer_page)
+        step = self._steps.get(key)
+        if step is None:
+            step = self._steps[key] = CapturedStep(
+                functools.partial(self._decode, page, cache), self.device,
+                pool=self._pool)
+        self._x.copy_(x)
+        self._pos.fill_(pos)
+        step()
+        return self._y.clone()
+
+    def _decode(self, page: torch.Tensor,
+                cache: Dict[str, torch.Tensor]) -> None:
+        self._y.copy_(PagedDecoder.layer(self, page, self._x, cache,
+                                         self._pos))

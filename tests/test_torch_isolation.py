@@ -97,7 +97,8 @@ def _imported_roots(path: Path):
     + [str(p.relative_to(REPO)) for p in (REPO / "tools").glob("torch_*.py")]
     + ["chip_smoke.py", "examples/train_single_chip_torch.py",
        "examples/two_slice_dp_torch.py",
-       "examples/seq_parallel_train_torch.py"]))
+       "examples/seq_parallel_train_torch.py",
+       "examples/generate_text_torch.py"]))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
@@ -132,6 +133,7 @@ ENTRY_POINTS = {
     "generate": _cpu_generate_without_device,
     "from_hf_model": lambda: tconvert.from_hf_model(_hf_like()),
     "PagedDecoder": lambda: tmodel.PagedDecoder(_serve_cfg()),
+    "JitPagedDecoder": lambda: tmodel.JitPagedDecoder(_serve_cfg()),
     "Trainer": lambda: Trainer("llama-tiny"),
     "Trainer(cross_slice_sync=)": lambda: Trainer(
         "llama-tiny", cross_slice_sync=lambda grads: grads),
@@ -140,6 +142,10 @@ ENTRY_POINTS = {
         None, tmodel.pack_pages(_serve_cfg(),
                                 tmodel.toy_param_tree(_serve_cfg())),
         _serve_cfg()),
+    "ContinuousBatcher(jit_decode=True)": lambda: ContinuousBatcher(
+        None, tmodel.pack_pages(_serve_cfg(),
+                                tmodel.toy_param_tree(_serve_cfg())),
+        _serve_cfg(), jit_decode=True),
 }
 
 

@@ -24,12 +24,21 @@ roundings stay inside it. f32, and bf16 at D 16 and 32, take the scalar
 route; the scalar routes of K3, K4 and K5 are checked at the edges of
 their 8-row warps and 32-row tiles, twice for bitwise repeatability, and
 a batch row of a larger call (another block size) against the call on
-that row alone, bitwise.
+that row alone, bitwise. K1 also runs inside a CUDA graph (the compiled
+decode): replayed, it is held against its plain version to the same
+tolerance, a graphed ``generate`` gives the uncaptured step's tokens
+bitwise with exact launch counts through replays, and a capture that
+fails raises.
 """
+
+import os
+import subprocess
+import sys
 
 import pytest
 import torch
 
+from rocnrdma_tpu_torch.models import llama
 from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
     attention, flash_attention_bwd_reference, flash_attention_lse,
@@ -38,6 +47,9 @@ from rocnrdma_tpu_torch.ops.attention import (
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                             rmsnorm_bwd_reference,
                                             rmsnorm_reference)
+from rocnrdma_tpu_torch.utils import graphs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -364,3 +376,126 @@ def test_flash_tensor_core_route_takes_transposed_views(cuda, causal):
     _assert_bf16_close(x.grad[:, :, :h].transpose(1, 2), dq, "dq")
     _assert_bf16_close(x.grad[:, :, h:h + kvh].transpose(1, 2), dk, "dk")
     _assert_bf16_close(x.grad[:, :, h + kvh:].transpose(1, 2), dv, "dv")
+
+
+# ----------------------------------------- kernels inside a CUDA graph
+
+
+def _tiny_model(cuda):
+    model = llama.Llama(llama.LLAMA_TINY, device=cuda)
+    model.load_state_dict(llama.init_params(llama.LLAMA_TINY, seed=0,
+                                            device=cuda), assign=True)
+    return model
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_replayed_in_a_graph(cuda, dtype):
+    """K1 at path (a)'s decode shape (4, 4096), captured with the copy
+    of its output: the first call runs it and captures it, a replay on
+    new input data matches the plain version; one launch a replay."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(4, 4096, generator=g, device=cuda).to(dtype)
+    w = torch.rand(4096, generator=g, device=cuda) + 0.5
+    y = torch.empty_like(x)
+    step = graphs.CapturedStep(lambda: y.copy_(rmsnorm(x, w)), cuda)
+    _native.reset_launches()
+    step()
+    x.copy_(torch.randn(4, 4096, generator=g, device=cuda).to(dtype))
+    step()
+    torch.cuda.synchronize()
+    assert step.launches == {"rmsnorm_fwd": 1}
+    assert _native.launches()["rmsnorm_fwd"] == 2
+    tol = 1e-5 if dtype == torch.float32 else 2 ** -7
+    torch.testing.assert_close(y, rmsnorm_reference(x, w), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("temperature", [0.0, 0.8])
+def test_graphed_generate_equals_uncaptured_step(cuda, temperature):
+    """llama-tiny: ``generate``'s replayed decode step against the same
+    step run uncaptured (``DecodeLoop(capture=False)``), greedy and
+    sampled from one seed: bitwise equal tokens."""
+    model = _tiny_model(cuda)
+    prompt = torch.randint(0, 256, (2, 9), device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(1))
+
+    def seeded():
+        return torch.Generator(device=cuda).manual_seed(5)
+
+    got = llama.generate(model, prompt, 12, temperature=temperature,
+                         generator=seeded())
+    loop = llama.DecodeLoop(model, 2, 128, temperature, capture=False)
+    assert torch.equal(got, loop.run(prompt, 12, seeded()))
+
+
+@pytest.mark.gpu
+def test_graphed_generate_launch_counts_exact(cuda):
+    """Launches through replays: each call counts K1 (2L + 1) times per
+    token and K3 L times (the prefill), whether its decode step was
+    captured in the call (the first) or only replayed (the second, which
+    captures nothing)."""
+    model = _tiny_model(cuda)
+    prompt = torch.randint(0, 256, (3, 5), device=cuda)
+    n_layers, new = model.cfg.n_layers, 9
+    before = graphs.captures()
+    for _ in range(2):
+        _native.reset_launches()
+        llama.generate(model, prompt, new)
+        torch.cuda.synchronize()
+        assert _native.launches() == {
+            "rmsnorm_fwd": (2 * n_layers + 1) * new,
+            "flash_fwd": n_layers, "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    assert graphs.captures() == before + 1
+
+
+@pytest.mark.gpu
+def test_graphed_generate_memo_holds_no_more_memory(cuda):
+    """40 sampled calls, each with a fresh generator, share one captured
+    loop: one capture, and the card's allocated bytes stay where the
+    first call left them; deleting the model frees the loop's cache and
+    graph at once."""
+    model = _tiny_model(cuda)
+    prompt = torch.randint(0, 256, (2, 9), device=cuda)
+    llama._GEN_CACHE.clear()
+    before, base = graphs.captures(), torch.cuda.memory_allocated(cuda)
+    held = []
+    for i in range(40):
+        gen = torch.Generator(device=cuda).manual_seed(i)
+        llama.generate(model, prompt, 6, temperature=0.8, generator=gen)
+        held.append(torch.cuda.memory_allocated(cuda))
+    assert graphs.captures() == before + 1 and len(llama._GEN_CACHE) == 1
+    assert held[1:] == [held[0]] * 39 and held[0] > base
+    del model
+    assert not llama._GEN_CACHE
+    assert torch.cuda.memory_allocated(cuda) < held[0]
+
+
+CAPTURE_FAILS = """
+import torch
+from rocnrdma_tpu_torch.ops import _native
+from rocnrdma_tpu_torch.ops.rmsnorm import rmsnorm
+from rocnrdma_tpu_torch.utils.graphs import CapturedStep
+x = torch.randn(4, 64, device="cuda")
+w = torch.ones(64, device="cuda")
+step = CapturedStep(lambda: float(rmsnorm(x, w).sum()), x.device)
+try:
+    step()
+except RuntimeError as exc:
+    print("RAISED", _native.launches()["rmsnorm_fwd"], step.graph is None)
+"""
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises(cuda):
+    """A step that syncs the host (``.item()``) cannot be captured: the
+    call raises, no graph is kept, and only the warm-up's launch is
+    counted. In a child process, so the failed capture leaves this one's
+    context alone."""
+    proc = subprocess.run([sys.executable, "-c", CAPTURE_FAILS],
+                          capture_output=True, text=True, timeout=300,
+                          cwd=REPO, env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.split() == ["RAISED", "1", "True"], proc.stdout

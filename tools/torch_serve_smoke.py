@@ -21,17 +21,24 @@ asserting what the reference's tool asserts:
   - **p99 token latency** under the gate, and **no leaked threads,
     credits or handles** across the loop and close.
 
+  - **compiled decode** (``jit_decode``): the same loopback workload
+    through ``ContinuousBatcher(jit_decode=True)`` (each decode layer
+    step replayed from a CUDA graph over pooled caches; uncaptured on
+    ``--cpu``) and through the eager decoder, both warm: tokens equal,
+    the two rates and their ratio recorded, not gated.
+
 The weights are llama-tiny's, from the port's ``init_params(seed=0)``,
 and the loopback batcher's greedy tokens are first held against the
-port's ``generate``. Two legs of the reference's tool are left out
-because they exist only in the JAX package: ``jit_decode`` (its jitted
-paged decoder; the port's decoder already computes on the device) and
-the cross-check of the numpy decoder against the flax model.
+port's ``generate``. One leg of the reference's tool is left out
+because it exists only in the JAX package: the cross-check of its numpy
+decoder against the flax model.
 
-Prints one ``SERVE {json}`` line with the reference's keys (without
-``jit_decode``, with ``device``). ``TDR_SERVE_QUICK=1`` sweeps two
-concurrency levels and one window a side; ``TDR_SERVE_GATE`` and
-``TDR_SERVE_P99_US`` override the gates, as in the reference's tool.
+Prints one ``SERVE {json}`` line with the reference's keys (with
+``device``; ``jit_decode`` names the eager rate ``tokens_s_eager``,
+where the reference's eager decoder is numpy). ``TDR_SERVE_QUICK=1``
+sweeps two concurrency levels and one window a side;
+``TDR_SERVE_GATE`` and ``TDR_SERVE_P99_US`` override the gates, as in
+the reference's tool.
 """
 
 from __future__ import annotations
@@ -287,6 +294,40 @@ def main(argv=None) -> int:
     np_windows = [tokens_s(False) for _ in range(trials)]
     telemetry.disable()
 
+    # 5. The compiled decode: the same loopback workload through
+    # jit_decode=True against the eager decoder, both measured warm (a
+    # first batch of four requests fills every slot, so each pooled
+    # cache pair's layer step is captured before the clock starts).
+    # Tokens must be equal; the rates are recorded, not gated.
+    def decode_rate(jit):
+        b = ContinuousBatcher(None, pages, cfg, max_slots=4, prefetch=False,
+                              jit_decode=jit, device=device)
+        for i in range(4):
+            b.submit(Request(30 + i, [2, 5, 3 + i], 4))
+        b.run()
+        for i in range(4):
+            b.submit(Request(40 + i, [2 + i, 5, 3], gen))
+        t0 = time.perf_counter()
+        b.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        dt = time.perf_counter() - t0
+        toks = {rid: r.tokens for rid, r in sorted(b.finished.items())
+                if rid >= 40}
+        b.close()
+        n = sum(len(t) for t in toks.values())
+        return round(n / dt, 3), toks, getattr(b.decoder, "graphs", 0)
+
+    eager_rate, eager_toks, _ = decode_rate(False)
+    jit_rate, jit_toks, jit_graphs = decode_rate(True)
+    assert jit_toks == eager_toks, \
+        (f"compiled paged decode diverged from the eager decoder:\n"
+         f"  jit={jit_toks}\n  eager={eager_toks}")
+    jit_decode = {"tokens_s_eager": eager_rate, "tokens_s_jit": jit_rate,
+                  "speedup": round(jit_rate / eager_rate, 3)
+                  if eager_rate else None,
+                  "tokens_match": True, "graphs": jit_graphs}
+
     try:
         cores = len(os.sched_getaffinity(0))
     except (AttributeError, OSError):
@@ -314,6 +355,7 @@ def main(argv=None) -> int:
         "noprefetch_tokens_s": max(np_windows),
         "tokens_s_windows": {"prefetch": sorted(pre_windows),
                              "noprefetch": sorted(np_windows)},
+        "jit_decode": jit_decode,
         "heal": {"failed": heal.get("failed", 0),
                  "retransmitted": heal.get("retransmitted", 0)},
         "scenario": {"evicted": 1, "joined_midstream": 1,
