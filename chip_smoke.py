@@ -155,6 +155,25 @@ held against its plain version, one launch a replay.
   sequence-parallel parity's past shard (S 512, full, merged lse) and
   S 2048; the build fails unless K3, K4 and K5 each have their six
   scalar instances with no spill.
+- the elastic soak: ``tools/torch_fault_soak.py``'s ``run_soak`` with
+  its two ranks as threads of this process on the card, llama3-1b's
+  widths in bf16 cut to 2 layers, a checkpoint every step (K1-K5 on the
+  tensor-core route at D128). (a) the reference's tier-1 mixed plan (a
+  transient ring fault, a corrupted sealed frame, and a connection
+  drop after half the posts the clean run made), 3 steps; (b) the
+  arbitrated flap (an in-process coordinator, rank 1 tearing its
+  transport down in its 2nd sync), 2 steps; each against its own clean
+  run: final parameters bitwise the clean run's on both ranks, the
+  counters of a fired plan, launches one train step's per step attempt;
+  each run's seconds, every resume's rebuild and restore ms, the
+  checkpoint bytes and directory, any stack a resume of 10 s or more
+  left (the ring's stall deadline is 15 s in this phase);
+- the ring-attention demo: ``examples/ring_attention_demo_torch.py``
+  at llama3-1b's attention widths (H16 KVH8 D128) and path (g)'s
+  context, 8192 f32 tokens over two rank threads, forward and backward
+  by explicit calls (K3, K5, K4 on their scalar routes): the output
+  and gradients against full attention on the card to 2e-3, the wall
+  and the launches.
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -174,6 +193,8 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import faulthandler
+import importlib.util
 import io
 import json
 import os
@@ -216,6 +237,7 @@ from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
 from rocnrdma_tpu_torch.transport import engine as eng
 from rocnrdma_tpu_torch.utils import graphs
+from rocnrdma_tpu_torch.utils.trace import trace
 
 REPO = Path(__file__).resolve().parent
 
@@ -1062,12 +1084,19 @@ def _compare_to_generate(model, req) -> dict:
         model, req.prompt.tolist(), req.tokens, ref, f"request {req.id}")}
 
 
+# New tokens a request of paths (b) and (h) decodes (16 before a cut of
+# the script's time: it aims at 600-700 s).
+SERVE_NEW_TOKENS = 8
+
+
 def serve_requests(cfg) -> list:
     """The request script of paths (b) and (h): 5 requests, prompts of
-    64-256 tokens from ``default_rng(2)``, 16 new tokens each."""
+    64-256 tokens from ``default_rng(2)``, ``SERVE_NEW_TOKENS`` new
+    tokens each."""
     rng = np.random.default_rng(2)
     return [Request(i + 1, rng.integers(0, cfg.vocab_size,
-                                        int(rng.integers(64, 257))), 16)
+                                        int(rng.integers(64, 257))),
+                    SERVE_NEW_TOKENS)
             for i in range(5)]
 
 
@@ -1099,7 +1128,8 @@ def phase_batcher(state, cfg, model) -> tuple:
     want = expected_launches(cfg, forward_steps=sum(
         r.max_new_tokens for r in reqs), prefills=len(reqs))
     require(launches == want, f"path (b) launches {launches} != {want}")
-    require(all(len(batcher.finished[r.id].tokens) == 16 for r in reqs),
+    require(all(len(batcher.finished[r.id].tokens) == SERVE_NEW_TOKENS
+                for r in reqs),
             "a request did not finish")
     require(batcher.finished[5].joined_step > 0, "request 5 did not join "
                                                  "mid-run")
@@ -1136,7 +1166,8 @@ def phase_batcher_jit(cfg, model, pages, b: dict) -> dict:
     want = expected_launches(cfg, forward_steps=sum(
         r.max_new_tokens for r in reqs), prefills=len(reqs))
     require(launches == want, f"path (b) jit launches {launches} != {want}")
-    require(all(len(batcher.finished[r.id].tokens) == 16 for r in reqs),
+    require(all(len(batcher.finished[r.id].tokens) == SERVE_NEW_TOKENS
+                for r in reqs),
             "a request did not finish")
     require(batcher.finished[5].joined_step > 0, "request 5 did not join "
                                                  "mid-run")
@@ -3117,6 +3148,257 @@ def phase_mesh_two_slice_elastic(mesh2: dict, f: dict) -> dict:
             "path_f_rank1_start_to_rejoin_s": f["rank1_start_to_rejoin_s"]}
 
 
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# The elastic soak (``tools/torch_fault_soak.py``) at llama3-1b's widths,
+# bf16, cut from 16 layers to 2: with a checkpoint every step, 16 layers
+# cost 5.34 GB a save (path (f): 7-11 s each), 2 layers 1.37 GB.
+SOAK_CFG = dataclasses.replace(llama.LLAMA3_1B, n_layers=2)
+SOAK_MIXED = (3, 1)     # (steps, seed) of the reference's tier-1 mixed plan
+SOAK_FLAP = (2, 5)      # of its arbitrated flap (rank 1 at its 2nd sync)
+# A conn clause that never fires: its arrival count is the posts of the
+# mixed plan's clean run, from which the drop's N is chosen.
+SOAK_COUNTING_PLAN = "conn:drop_after=1000000000000000"
+# A survivor's teardown can wait in the native ring destroy until the
+# ring's running op reaches its stall deadline, TDR_RING_TIMEOUT_MS
+# (ROADMAP Queue 3: 30 s by default, 120 s in path (f)). The soak's
+# deadline, far above a sync or a checkpoint at this size (about 2 s),
+# bounds that wait inside the phase's budget; a resume's stacks are
+# dumped every 10 s so such a wait still leaves its stack.
+SOAK_RING_TIMEOUT_MS = "15000"
+SOAK_STACKS_EVERY_S = 10
+
+
+def load_path(name: str, *parts):
+    """A module of the repo that is not in a package (a tool, an
+    example), by path."""
+    spec = importlib.util.spec_from_file_location(name, REPO.joinpath(*parts))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def watched_resumes(stacks_path: str, resumes: list, every_s: int):
+    """``Trainer._resume`` of every rank thread timed (its rebuild and
+    restore ms from the trainer's ``last_split``) into ``resumes`` and,
+    while any rank resumes, every thread's stack appended to
+    ``stacks_path`` every ``every_s`` seconds: the elastic paths' dump,
+    in process."""
+    resume = Trainer._resume
+    lock = threading.Lock()
+    active = [0]
+    f = open(stacks_path, "a")
+
+    def watched(self, exc, attempt):
+        with lock:
+            active[0] += 1
+            if active[0] == 1:
+                f.write(f"resume at {time.monotonic()}: {str(exc)[:300]}\n")
+                f.flush()
+                faulthandler.dump_traceback_later(every_s, repeat=True,
+                                                  file=f)
+        t0 = time.perf_counter()
+        try:
+            return resume(self, exc, attempt)
+        finally:
+            with lock:
+                active[0] -= 1
+                if active[0] == 0:
+                    faulthandler.cancel_dump_traceback_later()
+            resumes.append({"attempt": attempt, "error": str(exc)[:160],
+                            "resume_s": time.perf_counter() - t0,
+                            "rebuild_ms": self.last_split.get("rebuild_ms"),
+                            "restore_ms": self.last_split.get("restore_ms")})
+
+    Trainer._resume = watched
+    try:
+        yield
+    finally:
+        Trainer._resume = resume
+        faulthandler.cancel_dump_traceback_later()
+        f.close()
+
+
+@contextlib.contextmanager
+def counted_posts(seen: list):
+    """The soak re-parses the fault plan at its start and after its run
+    (``fault_plan_reset``), zeroing the clauses' counts: append the
+    first clause's arrivals to ``seen`` just before each."""
+    reset = eng.fault_plan_reset
+
+    def read_then_reset():
+        if eng.fault_plan_clauses():
+            seen.append(eng.fault_plan_seen(0))
+        reset()
+
+    eng.fault_plan_reset = read_then_reset
+    try:
+        yield
+    finally:
+        eng.fault_plan_reset = reset
+
+
+def phase_soak_elastic() -> dict:
+    """``tools/torch_fault_soak.py``'s ``run_soak`` on the card: two rank
+    threads of this process at llama3-1b's widths (bf16, 2 layers), each
+    ``Trainer(elastic=ElasticPolicy(save_every=1))`` behind a fused
+    ``CrossSliceAllReduce`` over a world-2 emu ring. (a) the reference's
+    tier-1 mixed plan, ``make_fault_plan(1, 3)`` and a connection drop
+    after N posts, N half the posts of the clean run (so the drop lands
+    mid-run at this size); (b) the arbitrated flap, an in-process
+    coordinator and rank 1 tearing its transport down in its 2nd sync,
+    2 steps. Each against its own clean run. Gates: final parameters
+    bitwise the clean run's on both ranks (``run_soak`` holds the ranks
+    bitwise equal); (a) every clause fired (3 hits), a resume, 2
+    rebuilds and a detected corruption; (b) a resume, a coordinator
+    rebuild and one final generation >= 1; each run's launches one
+    train step's per step attempt (steps x ranks + resumes)."""
+    tfs = load_path("torch_fault_soak", "tools", "torch_fault_soak.py")
+    per_attempt = expected_train_launches(llama.Llama(SOAK_CFG, "cuda"), 1)
+    # Checkpoints under the temporary directory: 2 ranks x (the file and
+    # its .tmp) a run, each run's removed after it.
+    ckpt_bytes = 3 * grad_bytes(SOAK_CFG)
+    root = tempfile.mkdtemp(prefix="tdr-soak-")
+    free = shutil.disk_usage(root).free
+    require(free >= 4 * ckpt_bytes + (1 << 30), f"the soak needs "
+            f"{4 * ckpt_bytes} bytes for its checkpoints, {root} has "
+            f"{free} free")
+    runs, resumes, seen = {}, [], []
+    prev_timeout = os.environ.get("TDR_RING_TIMEOUT_MS")
+    os.environ["TDR_RING_TIMEOUT_MS"] = SOAK_RING_TIMEOUT_MS
+
+    def soak(name, steps, seed, **kw):
+        ckpt = os.path.join(root, name)
+        _native.reset_launches()
+        since = time.monotonic()
+        t0 = time.perf_counter()
+        final, stats = tfs.run_soak(steps, seed, ckpt_dir=ckpt,
+                                    config=SOAK_CFG, device="cuda", **kw)
+        seconds = time.perf_counter() - t0
+        launches = _native.launches()
+        saves = [f for at, _, f in trace.events("ckpt.save") if at >= since]
+        attempts = steps * 2 + stats["resumes"]
+        require(launches == {k: v * attempts
+                             for k, v in per_attempt.items()},
+                f"soak {name}: launches {launches} != {per_attempt} x "
+                f"{attempts} step attempts")
+        sizes = [os.path.getsize(os.path.join(ckpt, f"rank{r}.npz"))
+                 for r in range(2)]
+        shutil.rmtree(ckpt)
+        runs[name] = {"seconds": seconds, "ckpt_bytes_by_rank": sizes,
+                      "saves": len(saves),
+                      "save_d2h_write_s": [[f["d2h_s"], f["write_s"]]
+                                           for f in saves],
+                      "launches": launches, **stats}
+        return final
+
+    try:
+        with watched_resumes(os.path.join(root, "stacks"), resumes,
+                             SOAK_STACKS_EVERY_S):
+            steps, seed = SOAK_MIXED
+            with counted_posts(seen):
+                clean = soak("a_clean", steps, seed,
+                             fault_plan=SOAK_COUNTING_PLAN)
+            # The last read is the run's end (the first, where the plan
+            # was parsed at the run's start, reads 0).
+            require(seen and seen[-1] > 0
+                    and runs["a_clean"]["fault_hits"] == 0,
+                    f"soak (a) clean: posts {seen}, hits "
+                    f"{runs['a_clean']['fault_hits']}")
+            drop_after = seen[-1] // 2
+            plan = (tfs.make_fault_plan(seed, steps)
+                    + f",conn:drop_after={drop_after}")
+            faulty = soak("a_mixed_plan", steps, seed, fault_plan=plan)
+            a = runs["a_mixed_plan"]
+            require(tfs.params_equal(clean, faulty),
+                    f"soak (a): final params differ from the clean run's "
+                    f"({a})")
+            require(a["fault_hits"] >= 3 and a["resumes"] >= 1
+                    and a["rebuilds"] >= 2 and a["integrity_failed"] >= 1,
+                    f"soak (a) counters: {a}")
+            del clean, faulty
+            steps, seed = SOAK_FLAP
+            clean = soak("b_clean", steps, seed)
+            faulty = soak("b_arbitrated_flap", steps, seed,
+                          coordinator=True, flap=(1, 2))
+            b = runs["b_arbitrated_flap"]
+            require(tfs.params_equal(clean, faulty),
+                    f"soak (b): final params differ from the clean run's "
+                    f"({b})")
+            require(b["resumes"] >= 1 and b["ctl"].get("ctl.rebuild", 0) >= 1
+                    and len(b["generations"]) == 1
+                    and b["generations"][0] >= 1, f"soak (b) counters: {b}")
+            require(tfs.hb_thread_census() == 0,
+                    "soak (b) left coordinator heartbeat threads running")
+        text = Path(root, "stacks").read_text()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if prev_timeout is None:
+            os.environ.pop("TDR_RING_TIMEOUT_MS", None)
+        else:
+            os.environ["TDR_RING_TIMEOUT_MS"] = prev_timeout
+    routes = {name: kernel_route(name, SOAK_CFG.head_dim, SOAK_CFG.dtype)
+              for name in FLASH_KERNELS}
+    require(set(routes.values()) == {TC}, f"soak routes {routes}")
+    return {"config": f"{SOAK_CFG.name}/bf16/{SOAK_CFG.n_layers} layers",
+            "world": 2, "ranks": "threads of this process on cuda:0",
+            "routes": routes,
+            "checkpoint_dir": os.path.dirname(root),
+            "checkpoint_dir_free_bytes": free,
+            "ring_timeout_ms": int(SOAK_RING_TIMEOUT_MS),
+            "plan_a": plan, "posts_a_clean": seen[-1],
+            "drop_after": drop_after, "flap": [1, 2],
+            "parity": {"a": True, "b": True}, "runs": runs,
+            "resumes": resumes,
+            "rebuild_ms": [r["rebuild_ms"] for r in resumes],
+            "restore_ms": [r["restore_ms"] for r in resumes],
+            "resume_stacks": [text] if "File " in text else [],
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in per_attempt},
+            "launches_per_step_attempt": per_attempt}
+
+
+# The demo at llama3-1b's attention widths and path (g)'s context.
+DEMO_SHAPE = {"world": 2, "seq_local": 4096, "heads": 16, "kv_heads": 8,
+              "head_dim": 128}
+
+
+def phase_ring_attention_demo() -> dict:
+    """``examples/ring_attention_demo_torch.py`` on the card: two rank
+    threads of a world-2 emu ring each run ``RingAttention.forward`` and
+    ``.backward`` (explicit calls, no autograd) on its 4096-token shard
+    of one causal f32 sequence of 8192 (H16 KVH8 D128; K3, K5 and K4 on
+    their scalar routes); the output and the three gradients held
+    against the full-sequence ``attention_reference`` and its autograd
+    gradients on the card, in f32 (TF32 off), to the demo's 2e-3. The
+    launches: one K3, K5 and K4 per visible (q shard, kv shard) pair,
+    world + world (world - 1) / 2 of them."""
+    demo = load_path("ring_attention_demo_torch", "examples",
+                     "ring_attention_demo_torch.py")
+    w = DEMO_SHAPE["world"]
+    _native.reset_launches()
+    res = demo.ring_attention_demo(port=free_port() + 300, device="cuda",
+                                   **DEMO_SHAPE)
+    launches = _native.launches()
+    pairs = w + w * (w - 1) // 2
+    want = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_fwd": pairs,
+            "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs}
+    require(launches == want, f"demo launches {launches} != {want}")
+    t0 = time.perf_counter()
+    errs = demo.max_errors(res)
+    ref_s = time.perf_counter() - t0
+    require(max(errs.values()) < demo.TOL,
+            f"demo: ring attention against full attention {errs}")
+    routes = {name: kernel_route(name, DEMO_SHAPE["head_dim"],
+                                 torch.float32) for name in FLASH_KERNELS}
+    require(set(routes.values()) == {"scalar"}, f"demo routes {routes}")
+    return {"shape": DEMO_SHAPE, "seq": w * DEMO_SHAPE["seq_local"],
+            "dtype": "float32", "causal": True, "routes": routes,
+            "max_abs_err": errs, "tol": demo.TOL,
+            "wall_s": res["wall_s"], "reference_s": ref_s,
+            "launches": launches}
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3194,6 +3476,9 @@ def main() -> int:
     mesh_ela = run_phase(
         "path_i_mesh_two_slice_per_layer_elastic_llama3_1b_bf16",
         phase_mesh_two_slice_elastic, mesh2, ela)
+    soak = run_phase("soak_elastic_llama3_1b_bf16", phase_soak_elastic)
+    demo = run_phase("ring_attention_demo_llama3_1b_f32",
+                     phase_ring_attention_demo)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
@@ -3210,7 +3495,9 @@ def main() -> int:
                 "i_mesh_dp2_tp2": mesh["launches"][name],
                 "i_mesh_two_slice": mesh2["launches"][name],
                 "i_mesh_two_slice_per_layer_elastic":
-                    mesh_ela["launches"][name]}
+                    mesh_ela["launches"][name],
+                "soak_elastic": soak["launches"][name],
+                "ring_attention_demo": demo["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

@@ -9,7 +9,9 @@
   raises instead of running on the CPU, ``chip_smoke.py`` exits
   non-zero without printing its result — in the repo, and alone in an
   empty directory — and ``tools/torch_serve_smoke.py`` without
-  ``--cpu`` exits non-zero without its ``SERVE`` line.
+  ``--cpu`` exits non-zero without its ``SERVE`` line, as do
+  ``tools/torch_fault_soak.py`` without its verdict and
+  ``examples/ring_attention_demo_torch.py`` without its ``OK`` line.
 """
 
 import ast
@@ -98,7 +100,8 @@ def _imported_roots(path: Path):
     + ["chip_smoke.py", "examples/train_single_chip_torch.py",
        "examples/two_slice_dp_torch.py",
        "examples/seq_parallel_train_torch.py",
-       "examples/generate_text_torch.py"]))
+       "examples/generate_text_torch.py",
+       "examples/ring_attention_demo_torch.py"]))
 def test_no_import_of_jax_or_the_reference(path):
     roots = set(_imported_roots(REPO / path))
     assert not roots & set(FORBIDDEN), (path, roots & set(FORBIDDEN))
@@ -191,4 +194,24 @@ def test_serve_smoke_fails_without_cuda(no_cuda):
         cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
     assert proc.returncode != 0
     assert "SERVE" not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_fault_soak_fails_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_fault_soak.py"),
+         "--steps", "1"],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
+    assert proc.returncode != 0
+    assert '"parity"' not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_ring_attention_demo_fails_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable,
+         str(REPO / "examples" / "ring_attention_demo_torch.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
+    assert proc.returncode != 0
+    assert "OK" not in proc.stdout
     assert "torch.cuda.is_available() is False" in proc.stderr
