@@ -173,7 +173,19 @@ held against its plain version, one launch a replay.
   context, 8192 f32 tokens over two rank threads, forward and backward
   by explicit calls (K3, K5, K4 on their scalar routes): the output
   and gradients against full attention on the card to 2e-3, the wall
-  and the launches.
+  and the launches;
+- the overlap smoke: ``tools/torch_overlap_smoke.py`` in its quick full
+  mode (``TDR_OVERLAP_QUICK=1``) on the card, its two ranks as two
+  processes over the emu ring, llama-tiny cut to 6 layers in f32 (K3,
+  K4 and K5 on their scalar route at head dim 16): the per-layer int8
+  pair, then the fused f32 pair on the same batches. The gates that
+  bind everywhere: wire events recorded, every world's
+  ``pending_async`` zero, each rank's native thread census flat across
+  the measured windows and below its baseline after the close, each
+  rank's int8 losses within 5e-3 of its fused pair's, and each rank's
+  launches as the model says for the steps it ran; the overlap
+  fractions reported with their bound note (the tool's ``OVERLAP``
+  line is printed too).
 
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
@@ -569,7 +581,8 @@ def phase_rmsnorm() -> dict:
              rmsnorm_case(1000, 4096, torch.bfloat16, 3, False),  # ragged
              rmsnorm_case(4, 4096, torch.bfloat16, 4, True),      # decode
              rmsnorm_case(256, 2048, torch.float32, 5, True),     # path (b)
-             rmsnorm_case(4096, 2048, torch.bfloat16, 6, True)]   # path (c)
+             rmsnorm_case(4096, 2048, torch.bfloat16, 6, True),   # path (c)
+             rmsnorm_case(128, 64, torch.float32, 9, False)]      # overlap
     # (a)'s decode step and (b) jit's layer step, inside a graph.
     graphed = [rmsnorm_graph_case(4, 4096, torch.bfloat16, 7),
                rmsnorm_graph_case(1, 2048, torch.float32, 8)]
@@ -666,9 +679,11 @@ def phase_flash() -> dict:
              flash_case(1, 16, 8, 85, 128, f32, True, 19, True, "scalar"),
              flash_case(1, 16, 8, 225, 128, f32, True, 20, True, "scalar",
                         repeat=True),
-             flash_case(1, 16, 8, 512, 128, f32, False, 40, True, "scalar")]
+             flash_case(1, 16, 8, 512, 128, f32, False, 40, True, "scalar"),
+             # the overlap smoke's llama-tiny: B2 H4 KVH2 S64, head dim 16
+             flash_case(2, 4, 2, 64, 16, f32, True, 41, False, "scalar")]
     return {"cases": cases, "path_g": [14, 15, 16], "path_i": 17,
-            "scalar_f32": [18, 19, 5, 20, 4]}
+            "scalar_f32": [18, 19, 5, 20, 4], "overlap_smoke": 21}
 
 
 def fwd_bwd_ms(fwd, args, grad) -> tuple:
@@ -724,7 +739,8 @@ def phase_rmsnorm_bwd() -> dict:
              rmsnorm_bwd_case(4096, 2048, f32, 12, True),
              rmsnorm_bwd_case(1000, 2048, bf, 13, False),  # ragged
              rmsnorm_bwd_case(1000, 2048, f32, 14, False),
-             rmsnorm_bwd_case(200, 2048, f32, 15, False)]  # train parity
+             rmsnorm_bwd_case(200, 2048, f32, 15, False),  # train parity
+             rmsnorm_bwd_case(128, 64, f32, 16, False)]    # overlap smoke
     return {"cases": cases}
 
 
@@ -850,9 +866,12 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 16, 8, 512, 128, f32, False, 38, True,
                             merged=True),
              # path (i): a position's local block at dp 2 x tp 2 of (c)
-             flash_bwd_case(1, 8, 4, 2048, 128, bf, True, 39, True, TC)]
+             flash_bwd_case(1, 8, 4, 2048, 128, bf, True, 39, True, TC),
+             # the overlap smoke's llama-tiny (see phase_flash)
+             flash_bwd_case(2, 4, 2, 64, 16, f32, True, 42, False,
+                            "scalar")]
     return {"cases": cases, "path_g": [14, 15, 16], "path_i": 18,
-            "scalar_f32": [6, 17, 3]}
+            "scalar_f32": [6, 17, 3], "overlap_smoke": 19}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:
@@ -3399,6 +3418,61 @@ def phase_ring_attention_demo() -> dict:
             "launches": launches}
 
 
+# The overlap smoke's model: llama-tiny at the tool's 6 layers.
+OVERLAP_CFG = dataclasses.replace(llama.LLAMA_TINY, n_layers=6)
+
+
+def phase_overlap_smoke() -> dict:
+    """``tools/torch_overlap_smoke.py`` with ``TDR_OVERLAP_QUICK=1`` and
+    no ``--cpu``: two rank processes on the card, each running the
+    per-layer int8 pair and the fused f32 pair for its rank and checking
+    its own censuses, ``pending_async`` and losses (a failed gate exits
+    non-zero). Held here: the exit code, two rank processes, wire events,
+    and each rank's launches those of the steps it ran. The censuses,
+    losses and fractions are reported, not gated again."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_overlap_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "TDR_OVERLAP_QUICK": "1"})
+    require(proc.returncode == 0,
+            f"overlap smoke exited {proc.returncode}: "
+            f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    lines = {ln.split(" ", 1)[0]: ln for ln in proc.stdout.splitlines()
+             if ln.startswith(("OVERLAP ", "OVERLAP_DETAIL "))}
+    print(lines["OVERLAP"], flush=True)
+    rec = json.loads(lines["OVERLAP"].split(" ", 1)[1])
+    detail = json.loads(lines["OVERLAP_DETAIL"].split(" ", 1)[1])
+    require(detail["ranks"] == "processes" and len(detail["per_rank"]) == 2,
+            f"overlap smoke ranks {detail['ranks']}")
+    require(rec["wire_events"] > 0, "overlap smoke: no wire events")
+    model = llama.Llama(OVERLAP_CFG, device="cpu")
+    launches = {name: 0 for name in _native.launches()}
+    for rk in detail["per_rank"]:
+        want = expected_train_launches(model, rk["steps_run"])
+        require(rk["launches"] == want,
+                f"rank {rk['rank']} launches {rk['launches']} != {want}")
+        for name, n in rk["launches"].items():
+            launches[name] += n
+    routes = {name: kernel_route(name, OVERLAP_CFG.head_dim, torch.float32)
+              for name in FLASH_KERNELS}
+    keep = ("grads_ms_per_step", "sync_ms_per_step", "ring_ms_per_step",
+            "census", "pending_async", "walls", "fused_step_s", "losses",
+            "fused_losses", "steps_run")
+    return {"config": "llama-tiny", "n_layers": OVERLAP_CFG.n_layers,
+            "dtype": "float32", "routes": routes, "launches": launches,
+            "device": detail["device"],
+            "overlap_fraction": rec["overlap_fraction"],
+            "compute_overlap_fraction": rec["compute_overlap_fraction"],
+            "windows": rec["windows"],
+            "compute_windows": rec["compute_windows"],
+            "compute_gate": rec["compute_gate"],
+            "wire_events": rec["wire_events"],
+            "bucketed_step_s": rec["bucketed_step_s"],
+            "fused_step_s": rec["fused_step_s"],
+            "per_rank": [{k: rk[k] for k in keep}
+                         for rk in detail["per_rank"]]}
+
+
 def run_phase(name: str, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3479,6 +3553,7 @@ def main() -> int:
     soak = run_phase("soak_elastic_llama3_1b_bf16", phase_soak_elastic)
     demo = run_phase("ring_attention_demo_llama3_1b_f32",
                      phase_ring_attention_demo)
+    ovl = run_phase("overlap_smoke_llama_tiny", phase_overlap_smoke)
 
     def by_path(name):
         return {"a_generate": gen["launches"][name],
@@ -3497,7 +3572,8 @@ def main() -> int:
                 "i_mesh_two_slice_per_layer_elastic":
                     mesh_ela["launches"][name],
                 "soak_elastic": soak["launches"][name],
-                "ring_attention_demo": demo["launches"][name]}
+                "ring_attention_demo": demo["launches"][name],
+                "overlap_smoke": ovl["launches"][name]}
 
     k1, k3, k3c = rms["cases"][0], fl["cases"][0], fl["cases"][6]
     k2, k45 = rms_bwd["cases"][0], fl_bwd["cases"][0]

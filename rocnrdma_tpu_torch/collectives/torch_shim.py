@@ -84,6 +84,9 @@ _REG_CACHE_MAX = 128
 # Adjacent exporter leaves merge across dead gaps up to this many bytes.
 _COALESCE_GAP_MAX = 512
 
+# Seconds a per-layer sync waits for a bucket that was never pushed.
+_POST_WAIT_S = 600.0
+
 # Stand-in leaf for a digest built from an abstract plan
 # (``_sched_describe`` reads only the size of a staged leaf).
 _SizeLeaf = namedtuple("_SizeLeaf", "size")
@@ -774,7 +777,8 @@ class CrossSliceAllReduce:
         order, ``(key, [(numel, dtype_str), ...])``; it is hashed into
         the schedule digest before any wire work. The trainer's
         gradient hooks call ``push(idx, leaves)`` as the backward
-        produces each bucket; ``finish(tree)`` waits every handle and
+        produces each bucket, and the trainer ``wait_posted()`` once the
+        backward is done; ``finish(tree)`` waits every handle and
         writes the reduced values into the leaves of ``tree``. Buckets
         go on the wire in the reverse of the plan's order, whatever
         order they are pushed in: the order a JAX rank's ordered taps
@@ -1197,6 +1201,9 @@ class _LayeredDeferred:
     def push(self, idx: int, leaves) -> None:
         pass  # the fused sync at finish() reduces the whole tree
 
+    def wait_posted(self) -> None:
+        pass  # nothing is posted before finish()
+
     def finish(self, tree):
         with trace.span("xslice.sync", rank=self._shim.world.rank):
             return self._shim._sync(tree)
@@ -1395,6 +1402,20 @@ class _LayeredSync:
                 h = shim.world.allreduce_async(buf)
             self._handles.append((seg, h))
 
+    def wait_posted(self) -> None:
+        """Block until every bucket has been posted or has failed. A
+        bucket still missing after ``_POST_WAIT_S`` (a gradient hook did
+        not fire) raises, the posted handles drained."""
+        with self._cv:
+            ok = self._cv.wait_for(lambda: all(self._arrived),
+                                   timeout=_POST_WAIT_S)
+        if not ok:
+            missing = [i for i, a in enumerate(self._arrived) if not a]
+            _drain(h for _s, h in self._handles)
+            raise RuntimeError(
+                f"layered sync: buckets {missing} never delivered "
+                "gradients (a gradient hook did not fire)")
+
     def finish(self, tree):
         """Wait for every bucket to be posted and every handle to land
         (posted order), write the reduced values into the leaves of
@@ -1410,15 +1431,7 @@ class _LayeredSync:
         t0 = time.perf_counter()
         ring_s = scatter_s = 0.0
         with trace.span("xslice.sync_finish", rank=shim.world.rank):
-            with self._cv:
-                ok = self._cv.wait_for(lambda: all(self._arrived),
-                                       timeout=600.0)
-            if not ok:
-                missing = [i for i, a in enumerate(self._arrived) if not a]
-                _drain(h for _s, h in self._handles)
-                raise RuntimeError(
-                    f"layered sync: buckets {missing} never delivered "
-                    "gradients (a gradient hook did not fire)")
+            self.wait_posted()
             if self._err is not None:
                 _drain(h for _s, h in self._handles)
                 raise self._err

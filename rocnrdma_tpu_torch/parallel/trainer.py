@@ -365,6 +365,19 @@ class Trainer:
         if last:
             self._push(pending, idx)
 
+    def _deliver_rest(self, pending) -> None:
+        """End a per-layer backward's deliveries. A copy that took no
+        gradient (a replicated head whose other tp positions' logits go
+        unused) never fires its hook: its bucket goes now. Then wait
+        until every bucket has been staged and posted, so the backward
+        span closes where the JAX trainer's does: once its program, and
+        so every tap's stage and launch, has finished."""
+        for idx, left in enumerate(self._left):
+            if left:
+                self._left[idx] = 0
+                self._push(pending, idx)
+        pending.wait_posted()
+
     def _push(self, pending, idx: int) -> None:
         """Push bucket ``idx``'s whole gradients. A failure to gather
         them is kept, and ``_synced_step`` raises it once ``finish()``
@@ -408,16 +421,10 @@ class Trainer:
             try:
                 with trace.span("trainer.backward", step=step_no):
                     loss = self._backward(tokens)
+                    if self._per_layer:
+                        self._deliver_rest(pending)
             finally:
                 self._pending_layers = None
-            if self._per_layer:
-                # A copy that took no gradient (a replicated head whose
-                # other tp positions' logits go unused) never fires its
-                # hook: its bucket goes once the backward is done.
-                for idx, left in enumerate(self._left):
-                    if left:
-                        self._left[idx] = 0
-                        self._push(pending, idx)
             if overlap and pending is None:
                 pending = sync.start(self.grads_tree())
             t0 = self._mark("grads_ms", t0)

@@ -11,7 +11,10 @@ first use, by ``make`` under an exclusive ``flock`` on
 ``rocnrdma_tpu_torch/_build/libtdr.lock`` (concurrent test workers
 race on the first build). It has no build-time dependencies: the verbs
 backend dlopens libibverbs at runtime, and machines without NICs get
-the emulated backend.
+the emulated backend. ``TDR_NATIVE_LIB``, read at import, names another
+artifact to load in its place (the ASan+UBSan ``libtdr_san.so`` that
+``make -C rocnrdma_tpu_torch/native sanitize`` builds); then nothing is
+built, and a path that does not exist raises ``TransportError``.
 
 Buffers are C-contiguous numpy arrays or contiguous **CPU** torch
 tensors (the address is ``data_ptr()``). A CUDA tensor is refused: the
@@ -37,7 +40,12 @@ from rocnrdma_tpu_torch.utils.trace import trace
 
 _PKG_DIR = os.path.abspath(os.path.join(os.path.dirname(__file__), os.pardir))
 _NATIVE_DIR = os.path.join(_PKG_DIR, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libtdr.so")
+# TDR_NATIVE_LIB points at an alternative artifact (the sanitized
+# libtdr_san.so built by `make sanitize`); default is the on-demand
+# production build.
+_NATIVE_LIB = os.environ.get("TDR_NATIVE_LIB") or None
+_LIB_PATH = os.path.abspath(_NATIVE_LIB) if _NATIVE_LIB else \
+    os.path.join(_NATIVE_DIR, "libtdr.so")
 _BUILD_LOCK = os.path.join(_PKG_DIR, "_build", "libtdr.lock")
 _build_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -186,7 +194,14 @@ def _load() -> ctypes.CDLL:
     with _build_lock:
         if _lib is not None:
             return _lib
-        _build_library()
+        if _NATIVE_LIB is None:
+            _build_library()
+        elif not os.path.exists(_LIB_PATH):
+            # No fallback to the production build: that would hide
+            # which library ran.
+            raise TransportError(
+                f"TDR_NATIVE_LIB={_NATIVE_LIB!r}: no such file "
+                f"({_LIB_PATH})")
         lib = ctypes.CDLL(_LIB_PATH)
         _declare(lib)
         _lib = lib

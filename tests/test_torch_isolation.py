@@ -10,8 +10,10 @@
   non-zero without printing its result — in the repo, and alone in an
   empty directory — and ``tools/torch_serve_smoke.py`` without
   ``--cpu`` exits non-zero without its ``SERVE`` line, as do
-  ``tools/torch_fault_soak.py`` without its verdict and
-  ``examples/ring_attention_demo_torch.py`` without its ``OK`` line.
+  ``tools/torch_fault_soak.py`` without its verdict,
+  ``examples/ring_attention_demo_torch.py`` without its ``OK`` line and
+  ``tools/torch_overlap_smoke.py`` without its ``OVERLAP`` line
+  (``test_overlap_smoke_fails_without_cuda``).
 """
 
 import ast
@@ -214,4 +216,13 @@ def test_ring_attention_demo_fails_without_cuda(no_cuda):
         cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
     assert proc.returncode != 0
     assert "OK" not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_overlap_smoke_fails_without_cuda(no_cuda):
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_overlap_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
+    assert proc.returncode != 0
+    assert "OVERLAP" not in proc.stdout
     assert "torch.cuda.is_available() is False" in proc.stderr

@@ -185,6 +185,9 @@ class _Spy:
         self.order.append(idx)
         self.pushed[idx] = [t.clone() for t in leaves]
 
+    def wait_posted(self):
+        pass
+
     def finish(self, tree):
         return tree
 

@@ -187,6 +187,9 @@ class _Recorder:
     def push(self, idx, leaves):
         self.order.append(idx)
 
+    def wait_posted(self):
+        pass
+
     def finish(self, tree):
         return tree
 
@@ -482,6 +485,9 @@ def _keep(shim, copy):
             class Pending:
                 def push(self, idx, leaves):
                     pend.push(idx, leaves)
+
+                def wait_posted(self):
+                    pend.wait_posted()
 
                 def finish(self, tree):
                     Keep.kept["in"] = {p: copy(v)
