@@ -582,7 +582,8 @@ def phase_rmsnorm() -> dict:
              rmsnorm_case(4, 4096, torch.bfloat16, 4, True),      # decode
              rmsnorm_case(256, 2048, torch.float32, 5, True),     # path (b)
              rmsnorm_case(4096, 2048, torch.bfloat16, 6, True),   # path (c)
-             rmsnorm_case(128, 64, torch.float32, 9, False)]      # overlap
+             rmsnorm_case(128, 64, torch.float32, 9, False),      # overlap
+             rmsnorm_case(32, 64, torch.float32, 10, False)]      # control
     # (a)'s decode step and (b) jit's layer step, inside a graph.
     graphed = [rmsnorm_graph_case(4, 4096, torch.bfloat16, 7),
                rmsnorm_graph_case(1, 2048, torch.float32, 8)]
@@ -681,9 +682,12 @@ def phase_flash() -> dict:
                         repeat=True),
              flash_case(1, 16, 8, 512, 128, f32, False, 40, True, "scalar"),
              # the overlap smoke's llama-tiny: B2 H4 KVH2 S64, head dim 16
-             flash_case(2, 4, 2, 64, 16, f32, True, 41, False, "scalar")]
+             flash_case(2, 4, 2, 64, 16, f32, True, 41, False, "scalar"),
+             # the control smoke's llama-tiny: S16, one partial kv tile
+             flash_case(2, 4, 2, 16, 16, f32, True, 43, False, "scalar")]
     return {"cases": cases, "path_g": [14, 15, 16], "path_i": 17,
-            "scalar_f32": [18, 19, 5, 20, 4], "overlap_smoke": 21}
+            "scalar_f32": [18, 19, 5, 20, 4], "overlap_smoke": 21,
+            "control_smoke": 22}
 
 
 def fwd_bwd_ms(fwd, args, grad) -> tuple:
@@ -740,7 +744,8 @@ def phase_rmsnorm_bwd() -> dict:
              rmsnorm_bwd_case(1000, 2048, bf, 13, False),  # ragged
              rmsnorm_bwd_case(1000, 2048, f32, 14, False),
              rmsnorm_bwd_case(200, 2048, f32, 15, False),  # train parity
-             rmsnorm_bwd_case(128, 64, f32, 16, False)]    # overlap smoke
+             rmsnorm_bwd_case(128, 64, f32, 16, False),    # overlap smoke
+             rmsnorm_bwd_case(32, 64, f32, 17, False)]     # control smoke
     return {"cases": cases}
 
 
@@ -869,9 +874,13 @@ def phase_flash_bwd() -> dict:
              flash_bwd_case(1, 8, 4, 2048, 128, bf, True, 39, True, TC),
              # the overlap smoke's llama-tiny (see phase_flash)
              flash_bwd_case(2, 4, 2, 64, 16, f32, True, 42, False,
+                            "scalar"),
+             # the control smoke's llama-tiny: S16 (see phase_flash)
+             flash_bwd_case(2, 4, 2, 16, 16, f32, True, 44, False,
                             "scalar")]
     return {"cases": cases, "path_g": [14, 15, 16], "path_i": 18,
-            "scalar_f32": [6, 17, 3], "overlap_smoke": 19}
+            "scalar_f32": [6, 17, 3], "overlap_smoke": 19,
+            "control_smoke": 20}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:

@@ -13,7 +13,9 @@
   ``tools/torch_fault_soak.py`` without its verdict,
   ``examples/ring_attention_demo_torch.py`` without its ``OK`` line and
   ``tools/torch_overlap_smoke.py`` without its ``OVERLAP`` line
-  (``test_overlap_smoke_fails_without_cuda``).
+  (``test_overlap_smoke_fails_without_cuda``) and
+  ``tools/torch_control_smoke.py``'s full mode without its verdict
+  (``test_control_smoke_fails_without_cuda``).
 """
 
 import ast
@@ -225,4 +227,16 @@ def test_overlap_smoke_fails_without_cuda(no_cuda):
         cwd=REPO, capture_output=True, text=True, timeout=300, env=_env())
     assert proc.returncode != 0
     assert "OVERLAP" not in proc.stdout
+    assert "torch.cuda.is_available() is False" in proc.stderr
+
+
+def test_control_smoke_fails_without_cuda(no_cuda):
+    env = _env()
+    env.pop("TDR_CONTROL_SMOKE_LITE", None)
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_control_smoke.py")],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert proc.returncode != 0
+    assert '"parity"' not in proc.stdout
+    assert "CONTROL_RUN" not in proc.stdout
     assert "torch.cuda.is_available() is False" in proc.stderr

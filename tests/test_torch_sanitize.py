@@ -19,9 +19,12 @@ the engine's flock, and each drive runs in a subprocess with ASan
 preloaded and ``TDR_NATIVE_LIB`` naming it: the port's sealed world-2
 ring allreduce (telemetry on, sharded progress, fold workers, 32 KiB
 chunks), then ``tools/torch_overlap_smoke.py`` lite,
-``tools/torch_hier_smoke.py``, ``tools/torch_perf_smoke.py`` and
-``tools/torch_telemetry_smoke.py`` with the variables of their
-reference ``*-smoke-san`` targets (``rocnrdma_tpu/native/Makefile``).
+``tools/torch_hier_smoke.py``, ``tools/torch_perf_smoke.py``,
+``tools/torch_telemetry_smoke.py``, ``tools/torch_control_smoke.py``
+lite, ``tools/torch_trace_smoke.py`` (whose rank processes inherit the
+preload, the library and the sanitizer options) and
+``tools/torch_brownout_smoke.py`` with the variables of their reference
+``*-smoke-san`` targets (``rocnrdma_tpu/native/Makefile``).
 Each must exit 0 with its OK marker and no UBSan ``runtime error`` or
 ``AddressSanitizer`` report. None of them runs the trainer or makes
 torch throw: under ASan any C++ exception torch throws aborts the
@@ -250,6 +253,17 @@ def test_sanitized_sealed_world2_allreduce(san_env):
     ("torch_hier_smoke.py", {"TDR_HIER_QUICK": "1"}, '"ok": true'),
     ("torch_perf_smoke.py", {}, "perf-smoke OK"),
     ("torch_telemetry_smoke.py", {}, '"ok": true'),
+    # The reference's control, trace and brownout targets leave the
+    # ring's stall deadline at its 30 s default, which the drives'
+    # rebuild budgets are sized against (tests/test_torch_fleet_smokes.py).
+    ("torch_control_smoke.py",
+     {"TDR_CONTROL_SMOKE_LITE": "1", "TDR_RING_TIMEOUT_MS": "30000"},
+     '"ok": true'),
+    ("torch_trace_smoke.py",
+     {"TDR_TRACE_SMOKE_SAN": "1", "TDR_RING_TIMEOUT_MS": "30000"},
+     "trace smoke OK"),
+    ("torch_brownout_smoke.py", {"TDR_RING_TIMEOUT_MS": "30000"},
+     '"ok": true'),
 ])
 def test_sanitized_smoke(san_env, tool, extra, marker):
     """Each smoke under ASan + UBSan, with all its gates. The hier case
