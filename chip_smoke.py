@@ -102,7 +102,9 @@ held against its plain version, one launch a replay.
   its checkpoint and rejoins while rank 0 resumes: digests equal on
   every rank and to path (d)'s after every step, one recovery and the
   ranks' generation on the coordinator's ``/metrics``, rank 0's
-  postmortem bundle, launches per attempt equal to path (c)'s per step,
+  postmortem bundle and the port's ``tdr_explain --postmortem`` readout
+  of its incident directory (the world, the bundle's generation, every
+  rank bundle listed), launches per attempt equal to path (c)'s per step,
   and the checkpoint bytes, save and restore ms, detection, rebuild and
   rejoin times, the clean steps' ms against (d)'s and the finite check's
   ms;
@@ -247,6 +249,7 @@ from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
 from rocnrdma_tpu_torch.parallel.trainer import Trainer, loss_fn
 from rocnrdma_tpu_torch.serving.batcher import ContinuousBatcher, Request
 from rocnrdma_tpu_torch.serving.model import ServeConfig, pack_llama_params
+from rocnrdma_tpu_torch.tools import explain
 from rocnrdma_tpu_torch.transport import engine as eng
 from rocnrdma_tpu_torch.utils import graphs
 from rocnrdma_tpu_torch.utils.trace import trace
@@ -2377,6 +2380,21 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0, env=None,
     return [t[0] for t in got], dead, started
 
 
+def explain_incident(incident: Path) -> dict:
+    """The port's ``tdr_explain --postmortem`` readout of one incident
+    directory (``rocnrdma_tpu_torch.tools.explain``): the rank bundles
+    the directory holds, the world and generation the analysis names,
+    and the first lines of its text."""
+    analysis = explain.explain_postmortem(str(incident))
+    lines = explain.render_text(analysis).splitlines()
+    return {"incident": incident.name,
+            "bundles": sorted(p.name for p in incident.glob("rank*.json")),
+            "world": analysis["incident"]["world"],
+            "generation": analysis["incident"]["generation"],
+            "n_collectives": analysis["n_collectives"],
+            "lines": len(lines), "head": lines[:8]}
+
+
 def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
                  per_attempt: dict, extra=()) -> tuple:
     """Run an elastic path (``run_elastic`` under a coordinator started
@@ -2388,7 +2406,9 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
     rebuilt; every step's digests equal on every
     rank; one recovery on the coordinator and the ranks' generation
     its; each step's launches ``per_attempt`` per attempt. Returns the
-    numbers, each rank's step lines and rank 0's postmortem bundle."""
+    numbers (with ``explain_incident`` of rank 0's incident directory,
+    read before the directory goes), each rank's step lines and rank 0's
+    postmortem bundle."""
     cfg = llama.LLAMA3_1B
     ckpt_bytes = 3 * grad_bytes(cfg)          # params and two moments
     root, free = checkpoint_root(2 * 2 * ckpt_bytes + (1 << 30))
@@ -2401,6 +2421,7 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
         bundles = sorted(Path(root, "postmortem", ELASTIC_WORLD).glob(
             "incident-g*/rank0.json"))
         bundle = json.loads(bundles[0].read_text()) if bundles else None
+        explained = explain_incident(bundles[0].parent) if bundles else None
         # The stacks of a resume that took 30 s or more.
         stacks = [t for t in (f.read_text() for f in sorted(
             Path(root).glob("stacks.*"))) if "File " in t]
@@ -2495,6 +2516,7 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
            "coordinator": served,
            "rank_generation": final0["generation"],
            "resume_stacks": stacks,
+           "postmortem_explain": explained,
            "launches": {name: sum(ln["launches"][name] for lines in by_rank
                                   for ln in lines) for name in per_attempt},
            "launches_per_step_per_rank": per_attempt,
@@ -2515,6 +2537,19 @@ def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
     require(bundle is not None and bundle["format"] == "tdr-postmortem-v1"
             and bundle["incarnation"] is not None,
             f"path (f) rank 0 postmortem bundle: {bundle}")
+    # The port's explainer reads the incident: its first line names the
+    # world and the bundle's generation, and it lists every rank bundle.
+    ex = out["postmortem_explain"]
+    head = ex["head"]
+    require(head and head[0].startswith(
+        f"incident: world={ELASTIC_WORLD} "
+        f"generation={bundle['generation']} "),
+        f"path (f) tdr_explain incident line: {head[:1]}")
+    listed = [ln.split(":")[0].split()[1] for ln in head[1:]
+              if ln.startswith("  rank ")]
+    require(ex["bundles"] and listed == [b[4:-5] for b in ex["bundles"]],
+            f"path (f) tdr_explain lists ranks {listed}, bundles "
+            f"{ex['bundles']}")
     clean = [ln for lines in by_rank for ln in lines
              if ln["step"] > 1 and ln["step"] != ELASTIC_DIE_AT]
     out.update({

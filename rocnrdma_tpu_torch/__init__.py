@@ -27,25 +27,34 @@ Layout mirrors the JAX package so each counterpart is easy to find:
 
 Entry points run on the card unless the caller asks for the CPU: they
 take ``device="cuda"`` by default and raise on a host without a GPU.
+
+Importing the package itself does not import torch: each module that
+needs torch imports it. So the control plane (``control``, the
+coordinator process ``python -m rocnrdma_tpu_torch.tools.rendezvous``)
+starts, and collects garbage, as the JAX package's does, without
+torch's object graph.
 """
 
 from __future__ import annotations
 
-from typing import Union
-
-import torch
+from typing import TYPE_CHECKING, Any, Union
 
 __version__ = "0.1.0"
 
 from rocnrdma_tpu_torch.utils.trace import trace  # noqa: E402,F401
 
-DeviceLike = Union[str, torch.device, None]
+if TYPE_CHECKING:
+    import torch
+
+    DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+def resolve_device(device: "DeviceLike" = "cuda") -> "torch.device":
     """The device an entry point runs on: ``"cuda"`` unless the caller
     names another. Raises when CUDA is asked for and there is no GPU —
     the port never drops to the CPU on its own."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -55,6 +64,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def __getattr__(name: str) -> Any:
+    # ``DeviceLike`` names ``torch.device``, so it is built at its first
+    # use (``from rocnrdma_tpu_torch import DeviceLike``), not at import.
+    if name == "DeviceLike":
+        import torch
+
+        value = Union[str, torch.device, None]
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __all__ = ["resolve_device", "trace", "DeviceLike"]

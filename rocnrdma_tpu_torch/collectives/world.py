@@ -29,8 +29,8 @@ corrupting — the new ring.
 **Black-box postmortem.** With ``TDR_POSTMORTEM_DIR`` set, every
 ``rebuild()`` first dumps this rank's flight-recorder ring, counters,
 the error that forced it and the schedule digest (format
-``tdr-postmortem-v1``, the JAX package's), which
-``tools/tdr_explain.py --postmortem`` merges.
+``tdr-postmortem-v1``, the JAX package's), which ``python3 -m
+rocnrdma_tpu_torch.tools.explain --postmortem`` merges.
 
 **Arbitrated rendezvous.** Pass ``controller=`` (a coordinator
 address or ``ControlClient``) and a ``world_name`` and the per-rank
@@ -1790,8 +1790,8 @@ class RingWorld:
         counter registry, last error (``reason``), and schedule digest
         to ``<dir>/<world>/incident-g<generation>/rank<rank>.json`` —
         keyed by the FAILED incarnation's generation, so all ranks of
-        one incident land in one directory and
-        ``tools/tdr_explain.py --postmortem`` merges them."""
+        one incident land in one directory and ``python3 -m
+        rocnrdma_tpu_torch.tools.explain --postmortem`` merges them."""
         timeout = int(self.timeout_ms if timeout_ms is None else timeout_ms)
         note_fault_injections()
         note_integrity()

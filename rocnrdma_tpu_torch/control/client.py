@@ -186,7 +186,7 @@ class ControlClient:
         member's next heartbeat drains and pushes its segment, and the
         call parks until all ranks reported (or the timeout). The
         result's ``segments`` map feeds ``telemetry.merge_fleet`` and
-        ``tools/tdr_explain.py``."""
+        ``rocnrdma_tpu_torch.tools.explain``."""
         return self.request("collect_trace", timeout_s=timeout_s,
                             world=world, max_events=int(max_events))
 

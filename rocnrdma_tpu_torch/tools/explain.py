@@ -14,8 +14,25 @@ cross-rank questions one rank's ring never could:
 * **Per-link bandwidth**: tx→rx pairs matched by (channel lane, frame
   seq) across neighbour ranks give MB/s per directed link, per tier for
   hierarchical worlds.
-* **Postmortem merge** (``explain_postmortem``): one incident's bundles
-  from every rank merged into a single readout.
+* **Postmortem merge** (``--postmortem DIR``, ``explain_postmortem``):
+  one incident's bundles from every rank merged into a single readout —
+  who reported what error, whose integrity ladder was moving, and the
+  final seconds of every rank's timeline.
+
+The port's counterpart of ``tools/tdr_explain.py``, command line
+included; it reads the port's segments and bundles::
+
+    python3 -m rocnrdma_tpu_torch.tools.explain --postmortem DIR
+    python3 -m rocnrdma_tpu_torch.tools.explain --collect HOST:PORT --world W
+    python3 -m rocnrdma_tpu_torch.tools.explain --trace RAW.json --json
+    python3 tools/torch_explain.py ...     # the same ``main``
+
+Inputs: ``--collect HOST:PORT --world NAME`` (a live pull through the
+coordinator), ``--trace RAW.json`` (segments saved by ``python -m
+rocnrdma_tpu_torch.telemetry.perfetto --raw``), or ``--postmortem DIR``
+(an ``incident-g<N>`` directory of rank bundles). ``--json`` emits the
+full machine-readable analysis; ``--out`` also writes the merged
+Perfetto trace.
 
 Phase attribution rule: within one (rank, collective) event stream, the
 interval ending at each event is charged to that event's phase (post_*
@@ -23,24 +40,26 @@ interval ending at each event is charged to that event's phase (post_*
 fold/fold_off → fold; everything else → stall). Ranks whose segment
 overlapped a nonzero telemetry drop are flagged ``tainted``.
 
-Only the analysis is kept here; the command-line reader stays
-``tools/tdr_explain.py``, which reads the port's segments and bundles
-through their wire format. The port's tools (``tools/torch_trace_smoke.py``)
-import this module. It imports nothing but the standard library and the
-port's telemetry and stream-id helpers.
+It imports nothing but the standard library and the port's telemetry
+and stream-id helpers; ``tools/torch_trace_smoke.py`` imports its
+analysis.
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import json
 import os
+import sys
 from typing import Any, Dict, List, Optional, Tuple
 
 from rocnrdma_tpu_torch.serving.stream import (
     is_stream_coll as _is_stream_coll,
     stream_coll_request as _stream_coll_request)
-from rocnrdma_tpu_torch.telemetry.perfetto import _tier_of_world
+from rocnrdma_tpu_torch.telemetry.perfetto import (_tier_of_world,
+                                                   collect_and_merge,
+                                                   merge_fleet)
 from rocnrdma_tpu_torch.telemetry.recorder import TelEvent, events_from_wire
 
 
@@ -320,6 +339,27 @@ def analyze_segments(segments: Dict[Any, Dict[str, Any]],
     return result
 
 
+def _degraded_label(rank: Optional[int],
+                    degraded: Dict[str, Dict[str, Dict[str, Any]]]
+                    ) -> str:
+    """How a straggling rank relates to the degradation ladder:
+    either it reported the degraded link itself, or it is the PEER a
+    reporter's degraded delegate link points at."""
+    if rank is None:
+        return ""
+    own = degraded.get(str(rank)) or {}
+    if own:
+        link, info = sorted(own.items())[0]
+        return (f" [degraded link {link} -> peer r{info['peer']} "
+                f"(rung {info['rung']})]")
+    for reporter, lm in sorted(degraded.items()):
+        for link, info in sorted(lm.items()):
+            if info.get("peer") == rank:
+                return (f" [behind degraded link {link} reported by "
+                        f"r{reporter} (rung {info['rung']})]")
+    return ""
+
+
 # ------------------------------------------------------- postmortems
 
 def load_postmortem(incident_dir: str) -> Dict[str, Any]:
@@ -372,3 +412,133 @@ def explain_postmortem(incident_dir: str) -> Dict[str, Any]:
         },
     }
     return analysis
+
+
+# ------------------------------------------------------------ render
+
+def _fmt_phases(phases: Dict[str, float]) -> str:
+    return " ".join(f"{p}={phases[p] * 1e3:.1f}ms"
+                    for p in PHASES if phases.get(p))
+
+
+def render_text(a: Dict[str, Any]) -> str:
+    lines = []
+    inc = a.get("incident")
+    if inc:
+        lines.append(f"incident: world={inc['world']} "
+                     f"generation={inc['generation']} ({inc['dir']})")
+        for r, info in inc["ranks"].items():
+            lines.append(f"  rank {r}: error={info['error'] or '-'} "
+                         f"integrity={info['integrity'] or {}} "
+                         f"events={info['events']}")
+    lines.append(f"ranks: {a['ranks']}  collectives: "
+                 f"{a['n_collectives']} "
+                 f"({a['joinable_collectives']} joinable cross-rank)")
+    st = a["straggler"]
+    deg = a.get("degraded_links") or {}
+    if st["rank"] is not None:
+        votes = st["votes"].get(st["rank"], 0)
+        lines.append(f"straggler: rank {st['rank']} "
+                     f"(arrived last in {votes} of "
+                     f"{a['joinable_collectives']} joinable "
+                     f"collectives)"
+                     + _degraded_label(st["rank"], deg))
+    if deg:
+        for r, lm in deg.items():
+            for link, info in sorted(lm.items()):
+                lines.append(
+                    f"degraded: r{r} link {link} -> peer "
+                    f"r{info['peer']} rung={info['rung']} "
+                    f"score={info['score']}")
+    if st["wall_s_by_rank"]:
+        walls = " ".join(f"r{r}={v * 1e3:.1f}ms"
+                         for r, v in st["wall_s_by_rank"].items())
+        lines.append(f"cumulative collective wall: {walls}")
+    for c in a["collectives"][-8:]:
+        tag = "auto" if c["auto_id"] else str(c["coll"])
+        lines.append(f"  coll {tag}: straggler=r{c['straggler']} "
+                     f"slowest_phase={c['slowest_phase']}")
+        for r, d in sorted(c["ranks"].items(), key=lambda kv: int(kv[0])):
+            retx = f" retx={d['retx']}" if d["retx"] else ""
+            lines.append(f"    r{r}: wall={d['wall_s'] * 1e3:.2f}ms "
+                         f"{_fmt_phases(d['phases_s'])}{retx}")
+    if a.get("serving"):
+        lines.append("serving streams (per request; 0 = shared "
+                     "weight pages):")
+        for rid, d in sorted(a["serving"].items(),
+                             key=lambda kv: int(kv[0])):
+            sv = d["straggler_votes"]
+            worst = max(sv, key=sv.get) if sv else None
+            tail = (f" straggler=r{worst} ({sv[worst]} votes)"
+                    if worst is not None else "")
+            retx = f" retx={d['retx']}" if d["retx"] else ""
+            lines.append(
+                f"  req {rid}: {d['transfers']} transfers "
+                f"{d['tx_bytes']} B wall={d['wall_s'] * 1e3:.1f}ms"
+                f"{retx}{tail}")
+    if a["links"]:
+        lines.append("links (tx->rx matched by lane+seq):")
+        for ln in a["links"]:
+            lines.append(
+                f"  {ln['world']}[{ln['tier']}] r{ln['src']}->"
+                f"r{ln['dst']} ch{ln['channel']}: "
+                f"{ln['MBps']:.1f} MB/s over {ln['frames']} frames "
+                f"({ln['bytes']} B)")
+    if a["tainted_ranks"]:
+        lines.append(f"WARNING: telemetry drops on ranks "
+                     f"{sorted(a['tainted_ranks'])} — attribution on "
+                     "those ranks is skewed (raise "
+                     "TDR_TELEMETRY_RING)")
+    return "\n".join(lines)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        prog="python3 -m rocnrdma_tpu_torch.tools.explain",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--collect", metavar="HOST:PORT",
+                     help="pull segments live from a coordinator")
+    src.add_argument("--trace", metavar="RAW.json",
+                     help="saved raw segments (perfetto CLI --raw)")
+    src.add_argument("--postmortem", metavar="DIR",
+                     help="an incident-g<N> directory of rank bundles")
+    ap.add_argument("--world", default=None,
+                    help="world name (required with --collect)")
+    ap.add_argument("--timeout", type=float, default=30.0)
+    ap.add_argument("--max-events", type=int, default=65536)
+    ap.add_argument("--json", action="store_true",
+                    help="emit the full analysis as JSON")
+    ap.add_argument("--out", default=None,
+                    help="also write a merged Perfetto trace here")
+    args = ap.parse_args(argv)
+
+    if args.postmortem:
+        analysis = explain_postmortem(args.postmortem)
+        segments = load_postmortem(args.postmortem)["segments"]
+    else:
+        if args.collect:
+            if not args.world:
+                ap.error("--collect requires --world")
+            res = collect_and_merge(args.collect, args.world,
+                                    timeout_s=args.timeout,
+                                    max_events=args.max_events)
+            segments = res["segments"]
+        else:
+            with open(args.trace) as f:
+                raw = json.load(f)
+            segments = raw.get("segments", raw)
+        analysis = analyze_segments(segments)
+
+    if args.out:
+        merge_fleet(segments, path=args.out)
+    if args.json:
+        print(json.dumps(analysis, indent=2, sort_keys=True))
+    else:
+        print(render_text(analysis))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

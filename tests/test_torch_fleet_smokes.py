@@ -13,7 +13,14 @@ Tier-1:
   its phases and a matched link, a degraded link that heals and one
   that does not, serving stream requests, clock offsets and a tainted
   rank), segments recorded from a port world-2 run with the recorder
-  on, and postmortem bundles written by the port's ranks;
+  on, and postmortem bundles written by the port's ranks; on each,
+  ``render_text`` gives the reference's text;
+- the explainer's command line (``rocnrdma_tpu_torch.tools.explain``'s
+  ``main``, ``python3 -m rocnrdma_tpu_torch.tools.explain`` and
+  ``tools/torch_explain.py``) prints what ``tools/tdr_explain.py``
+  prints in its ``--trace``, ``--postmortem`` and ``--json`` modes and
+  writes the same ``--out`` trace; ``--collect`` pulls a port world's
+  segments through the port's coordinator;
 - the control smoke's lite drive, in a ``python -c`` subprocess (the
   tool sets ``TDR_TELEMETRY`` before the port's library loads), holds
   every gate, and its verdict has the reference tool's keys;
@@ -60,9 +67,10 @@ MS = 1_000_000
 
 def _both(segments):
     """The port's analysis of ``segments``, held equal to the
-    reference's."""
+    reference's, and its text equal to the reference's."""
     got = explain.analyze_segments(segments)
     assert got == ref_explain.analyze_segments(segments)
+    assert explain.render_text(got) == ref_explain.render_text(got)
     return got
 
 
@@ -227,11 +235,11 @@ def test_explain_recorded_port_segments_equal_the_reference(recording):
     assert a["links"], "no tx->rx pair matched across the two ranks"
 
 
-def test_explain_postmortem_of_port_bundles_equals_the_reference(
-        recording, monkeypatch, tmp_path):
-    """A retryable failure, then a rebuild on both ranks: the bundles the
-    port's ranks write, merged by both copies."""
-    monkeypatch.setenv("TDR_POSTMORTEM_DIR", str(tmp_path))
+def _port_incident(monkeypatch, root):
+    """A retryable failure, then a rebuild on both ranks of a port
+    world-2 ring: the incident directory of the bundles the ranks
+    write."""
+    monkeypatch.setenv("TDR_POSTMORTEM_DIR", str(root))
     worlds = _world2(world_name="pmfleet")
     try:
         worlds[1]._teardown()
@@ -242,10 +250,20 @@ def test_explain_postmortem_of_port_bundles_equals_the_reference(
     finally:
         for w in worlds:
             w.close()
-    inc_dir = str(tmp_path / "pmfleet" / "incident-g0")
+    return str(root / "pmfleet" / "incident-g0")
+
+
+def test_explain_postmortem_of_port_bundles_equals_the_reference(
+        recording, monkeypatch, tmp_path):
+    """The bundles the port's ranks write, merged by both copies."""
+    inc_dir = _port_incident(monkeypatch, tmp_path)
     got = explain.explain_postmortem(inc_dir)
     want = ref_explain.explain_postmortem(inc_dir)
     assert got == want
+    text = explain.render_text(got)
+    assert text == ref_explain.render_text(want)
+    assert text.startswith(f"incident: world=pmfleet generation="
+                           f"{got['incident']['generation']} ({inc_dir})")
     assert got["incident"]["world"] == "pmfleet"
     assert sorted(got["incident"]["ranks"]) == ["0", "1"]
     assert got["incident"]["ranks"]["1"]["error"] == "fleet incident"
@@ -254,6 +272,118 @@ def test_explain_postmortem_of_port_bundles_equals_the_reference(
     empty.mkdir()
     with pytest.raises(SystemExit):
         explain.explain_postmortem(str(empty))
+
+
+_DEGRADED = {"0": {"inter:r0": {"peer": 1, "rung": "fallback",
+                                "score": 0.31},
+                   "inter:r4": {"peer": 2, "rung": "wire_int8",
+                                "score": 0.5}},
+             "3": {"intra:r3": {"peer": 1, "rung": "wire_bf16",
+                                "score": 0.8}}}
+
+
+@pytest.mark.parametrize("rank", [None, 0, 1, 2, 3, 5])
+def test_degraded_label_equals_the_reference(rank):
+    """A straggler that reported a degraded link itself, one that is the
+    peer behind a reporter's link (the first reporter in order), and one
+    that is neither."""
+    got = explain._degraded_label(rank, _DEGRADED)
+    assert got == ref_explain._degraded_label(rank, _DEGRADED)
+    assert got == {None: "", 5: "",
+                   0: " [degraded link inter:r0 -> peer r1 (rung "
+                      "fallback)]",
+                   1: " [behind degraded link inter:r0 reported by r0 "
+                      "(rung fallback)]",
+                   2: " [behind degraded link inter:r4 reported by r0 "
+                      "(rung wire_int8)]",
+                   3: " [degraded link intra:r3 -> peer r1 (rung "
+                      "wire_bf16)]"}[rank]
+
+
+# ------------------------------------------------- the explainer's CLI
+
+def _main_out(main, argv, capsys):
+    assert main(argv) == 0
+    return capsys.readouterr().out
+
+
+@pytest.mark.parametrize("build", [_straggler_and_link, _degraded_link,
+                                   _stream_requests],
+                         ids=["straggler_phases_link", "degraded_link",
+                              "stream_requests"])
+def test_explain_cli_trace_modes_print_what_the_reference_prints(
+        build, tmp_path, capsys):
+    """``--trace`` over saved raw segments (the perfetto CLI's ``--raw``
+    shape), as text and as ``--json``, and the ``--out`` trace."""
+    raw = tmp_path / "raw.json"
+    raw.write_text(json.dumps({"world": "syn", "segments": build()}))
+    for extra in ([], ["--json"]):
+        argv = ["--trace", str(raw)] + extra
+        got = _main_out(explain.main, argv, capsys)
+        assert got == _main_out(ref_explain.main, argv, capsys), extra
+    ours, ref = tmp_path / "ours.json", tmp_path / "ref.json"
+    _main_out(explain.main, ["--trace", str(raw), "--out", str(ours)],
+              capsys)
+    _main_out(ref_explain.main, ["--trace", str(raw), "--out", str(ref)],
+              capsys)
+    assert ours.read_bytes() == ref.read_bytes()
+    assert json.loads(ours.read_text())["traceEvents"]
+
+
+def test_explain_cli_postmortem_and_subprocess_forms(
+        recording, monkeypatch, tmp_path, capsys):
+    """``--postmortem`` over the port ranks' bundles, as text, ``--json``
+    and with ``--out``; then the two command forms of the port's CLI in
+    subprocesses against the reference's text and JSON."""
+    inc_dir = _port_incident(monkeypatch, tmp_path / "pm")
+    outs = {}
+    for extra in ([], ["--json"]):
+        argv = ["--postmortem", inc_dir] + extra
+        outs[tuple(extra)] = _main_out(explain.main, argv, capsys)
+        assert outs[tuple(extra)] == _main_out(ref_explain.main, argv,
+                                               capsys)
+    assert outs[()].startswith("incident: world=pmfleet generation=")
+    assert "  rank 0: error=" in outs[()] and "  rank 1: error=" in outs[()]
+    ours, ref = tmp_path / "ours.json", tmp_path / "ref.json"
+    _main_out(explain.main, ["--postmortem", inc_dir, "--out", str(ours)],
+              capsys)
+    _main_out(ref_explain.main, ["--postmortem", inc_dir, "--out",
+                                 str(ref)], capsys)
+    assert ours.read_bytes() == ref.read_bytes()
+    env = {k: v for k, v in os.environ.items() if k != "TDR_NATIVE_LIB"}
+    for cmd, extra in (
+            ([os.path.join(TOOLS, "torch_explain.py")], []),
+            (["-m", "rocnrdma_tpu_torch.tools.explain"], ["--json"])):
+        proc = subprocess.run([sys.executable] + cmd
+                              + ["--postmortem", inc_dir] + extra,
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=120, env=env)
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        assert proc.stdout == outs[tuple(extra)], cmd
+    with pytest.raises(SystemExit):
+        explain.main(["--collect", "127.0.0.1:1"])  # --world is required
+
+
+def test_explain_cli_collect_pulls_a_port_world(recording, capsys):
+    """``--collect`` through the port's coordinator: a segment from each
+    rank of a port world-2 ring, analysed as the reference analyses the
+    same segments."""
+    from rocnrdma_tpu_torch.control import Coordinator
+
+    c = Coordinator(port=0, lease_ms=1500, port_base=port_band(64)).start()
+    worlds = []
+    try:
+        worlds = _world2(controller=c.address, world_name="collect2")
+        out = _main_out(explain.main, ["--collect", c.address, "--world",
+                                       "collect2", "--timeout", "20",
+                                       "--json"], capsys)
+    finally:
+        for w in worlds:
+            w.close()
+        c.stop()
+    a = json.loads(out)
+    assert a["ranks"] == [0, 1]
+    assert a["n_collectives"] >= 1
 
 
 # ------------------------------------------------------------ control

@@ -22,9 +22,10 @@ chunks), then ``tools/torch_overlap_smoke.py`` lite,
 ``tools/torch_hier_smoke.py``, ``tools/torch_perf_smoke.py``,
 ``tools/torch_telemetry_smoke.py``, ``tools/torch_control_smoke.py``
 lite, ``tools/torch_trace_smoke.py`` (whose rank processes inherit the
-preload, the library and the sanitizer options) and
-``tools/torch_brownout_smoke.py`` with the variables of their reference
-``*-smoke-san`` targets (``rocnrdma_tpu/native/Makefile``).
+preload, the library and the sanitizer options),
+``tools/torch_brownout_smoke.py`` and ``tools/torch_fleet_soak.py`` lite
+(whose coordinator child inherits the preload) with the variables of
+their reference ``*-smoke-san`` targets (``rocnrdma_tpu/native/Makefile``).
 Each must exit 0 with its OK marker and no UBSan ``runtime error`` or
 ``AddressSanitizer`` report. None of them runs the trainer or makes
 torch throw: under ASan any C++ exception torch throws aborts the
@@ -263,6 +264,9 @@ def test_sanitized_sealed_world2_allreduce(san_env):
      {"TDR_TRACE_SMOKE_SAN": "1", "TDR_RING_TIMEOUT_MS": "30000"},
      "trace smoke OK"),
     ("torch_brownout_smoke.py", {"TDR_RING_TIMEOUT_MS": "30000"},
+     '"ok": true'),
+    ("torch_fleet_soak.py",
+     {"TDR_FLEET_SOAK_LITE": "1", "TDR_RING_TIMEOUT_MS": "30000"},
      '"ok": true'),
 ])
 def test_sanitized_smoke(san_env, tool, extra, marker):
