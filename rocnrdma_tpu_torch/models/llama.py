@@ -64,6 +64,7 @@ from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
 from ..utils.graphs import CapturedStep
+from ..utils.trace import trace
 
 __all__ = [
     "LlamaConfig", "LLAMA3_8B", "LLAMA3_1B", "LLAMA_TINY", "CONFIGS",
@@ -530,9 +531,13 @@ class DecodeLoop:
         if self.temperature > 0.0:
             source = generator or _default_generator(self.tok.device)
             self.generator.set_state(source.get_state())
-        self.start_sequence(prompt)
-        for _ in range(max_new_tokens - 1):
-            self.step()
+        dev = self.tok.device
+        with trace.span("generate.prefill", dev, b=prompt.shape[0],
+                        p=prompt.shape[1]):
+            self.start_sequence(prompt)
+        with trace.span("generate.decode", dev, steps=max_new_tokens - 1):
+            for _ in range(max_new_tokens - 1):
+                self.step()
         if source is not None:
             source.set_state(self.generator.get_state())
         return self.tokens(max_new_tokens)
@@ -596,7 +601,8 @@ def _decode_loop(model: Llama, b: int, cache_len: int,
             len(_GEN_CACHE) >= _GEN_CACHE_MAX
             or need + sum(v.nbytes for v in _GEN_CACHE.values())
             > _GEN_CACHE_MAX_BYTES):
-        _GEN_CACHE.pop(next(iter(_GEN_CACHE)))
+        gone = _GEN_CACHE.pop(next(iter(_GEN_CACHE)))
+        trace.event("generate.loop_evict", bytes=gone.nbytes)
     loop = DecodeLoop(model, b, cache_len, temperature)
     _GEN_CACHE[key] = loop
     return loop

@@ -50,7 +50,6 @@ from typing import Dict, Iterator, List, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from ..ops.attention import attention
 from ..ops.rmsnorm import rmsnorm
@@ -58,6 +57,7 @@ from ..ops.sharding import attn_ok, on_positions, run_sharded
 from ..parallel.mesh import (Mesh, all_gather, assemble, batch_spec, block,
                              gather, ordered_sum, param_shardings, psum,
                              shard)
+from ..utils.trace import trace
 from .llama import (LlamaConfig, _flax_path, checkpoint_block, flax_tree,
                     out_proj, param_names, project_qkv, rope_freqs, swiglu)
 
@@ -251,7 +251,7 @@ class MeshedLlama:
         of its copies' in position order, onto its master; the other
         copies' dropped. A name already summed since the last
         :meth:`zero_grad` is left as it is."""
-        with record_function("mesh.grad_sum"), torch.no_grad():
+        with trace.span("mesh.grad_sum"), torch.no_grad():
             for name in names:
                 if name in self._summed:
                     continue
@@ -268,7 +268,7 @@ class MeshedLlama:
     def broadcast(self, names=None) -> None:
         """Every master (of ``names``, default all) written into its
         other copies."""
-        with record_function("mesh.broadcast"):
+        with trace.span("mesh.broadcast"):
             for name in self.names if names is None else names:
                 for group in self.copies[name]:
                     master = self.local[group[0]][name]

@@ -51,6 +51,8 @@ from typing import Dict, Iterable, Iterator, List
 
 import torch
 
+from ..utils.trace import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -134,16 +136,22 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every library of ``names`` that is not built yet, one
     ``nvcc`` per source, all started together. Returns the seconds each
     compile took (0.0 for a library already built). Raises with the
-    compiler's output when one fails."""
-    names = list(names)
+    compiler's output when one fails. A build that compiles anything is
+    a ``kernels.build`` span of the tracer, with the ``names`` built."""
+    secs = {name: 0.0 for name in names}
+    todo = [name for name in secs if not library_path(name).exists()]
+    if todo:
+        with trace.span("kernels.build", names=todo):
+            secs.update(_compile(todo))
+    return secs
+
+
+def _compile(names: List[str]) -> Dict[str, float]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     started = {}
     secs: Dict[str, float] = {}
     for name in names:
         out = library_path(name)
-        if out.exists():
-            secs[name] = 0.0
-            continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         proc = subprocess.Popen(nvcc_command(name, tmp),
                                 stdout=subprocess.PIPE,

@@ -33,9 +33,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from .. import resolve_device
+from ..utils.trace import trace
 
 __all__ = ["Mesh", "make_mesh", "parse_mesh", "batch_spec", "param_spec",
            "param_shardings", "replicated", "shard", "assemble", "psum",
@@ -250,12 +250,12 @@ class _Sum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *xs):
         ctx.devices = [x.device for x in xs]
-        with record_function("mesh.psum"):
+        with trace.span("mesh.psum"):
             return _copies(ordered_sum(xs), ctx.devices)
 
     @staticmethod
     def backward(ctx, *gs):
-        with record_function("mesh.psum"):
+        with trace.span("mesh.psum"):
             return _copies(ordered_sum(gs), ctx.devices)
 
 
@@ -269,13 +269,13 @@ class _AllGather(torch.autograd.Function):
         ctx.dim = dim
         ctx.devices = [x.device for x in xs]
         ctx.sizes = [x.shape[dim] for x in xs]
-        with record_function("mesh.all_gather"):
+        with trace.span("mesh.all_gather"):
             full = torch.cat([x.to(xs[0].device) for x in xs], dim)
             return _copies(full, ctx.devices)
 
     @staticmethod
     def backward(ctx, *gs):
-        with record_function("mesh.all_gather"):
+        with trace.span("mesh.all_gather"):
             total = ordered_sum(gs)
             parts = total.split(ctx.sizes, ctx.dim)
             return (None, *(p.to(device=d, copy=True,
@@ -292,12 +292,12 @@ class _Gather(torch.autograd.Function):
         ctx.dim = dim
         ctx.devices = [x.device for x in xs]
         ctx.sizes = [x.shape[dim] for x in xs]
-        with record_function("mesh.gather"):
+        with trace.span("mesh.gather"):
             return torch.cat([x.to(device) for x in xs], dim)
 
     @staticmethod
     def backward(ctx, g):
-        with record_function("mesh.gather"):
+        with trace.span("mesh.gather"):
             parts = g.split(ctx.sizes, ctx.dim)
             return (None, None, *(p.to(device=d, copy=True,
                                        memory_format=torch.contiguous_format)

@@ -532,10 +532,15 @@ class Trainer:
     def _step_once(self, tokens: torch.Tensor, step_no: int):
         if self.cross_slice_sync is not None:
             return self._synced_step(tokens, step_no)
-        with trace.span("trainer.fused_step", step=step_no):
+        dev = self.device
+        with trace.span("trainer.fused_step", dev, step=step_no):
             self._zero_grad()
-            loss = self._backward(tokens)
-            self._apply()
+            with trace.span("trainer.forward", dev, step=step_no):
+                loss = self._forward(tokens)
+            with trace.span("trainer.backward", dev, step=step_no):
+                self._grads(loss)
+            with trace.span("trainer.apply", dev, step=step_no):
+                self._apply()
         return loss
 
     def _zero_grad(self) -> None:
@@ -543,9 +548,17 @@ class Trainer:
 
     def _backward(self, tokens: torch.Tensor) -> torch.Tensor:
         """The loss and its gradients in the parameters' ``.grad``."""
-        loss = loss_fn(self.model, tokens)
-        loss.backward()
+        loss = self._forward(tokens)
+        self._grads(loss)
         return loss
+
+    def _forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The loss of (B, S) tokens."""
+        return loss_fn(self.model, tokens)
+
+    def _grads(self, loss: torch.Tensor) -> None:
+        """The loss's gradients in the parameters' ``.grad``."""
+        loss.backward()
 
     def _set_grads(self, tree) -> None:
         set_grads(self.model, tree)
@@ -594,7 +607,11 @@ class Trainer:
                     self._resume(e, resumes)
                     quarantined = False
         self.global_step += 1
-        value = float(loss.detach())
+        # Reading the loss waits for the step's device work; dropping it
+        # frees the step's autograd graph, host work the device idles for.
+        with trace.span("trainer.finish", step=self.global_step):
+            value = float(loss.detach())
+            del loss
         if (self.elastic is not None and self.elastic.save_every > 0
                 and self.global_step % self.elastic.save_every == 0):
             t0 = time.perf_counter()
@@ -717,10 +734,9 @@ class MeshTrainer(Trainer):
     def _zero_grad(self) -> None:
         self.model.zero_grad()
 
-    def _backward(self, tokens: torch.Tensor) -> torch.Tensor:
-        loss = super()._backward(tokens)
+    def _grads(self, loss: torch.Tensor) -> None:
+        super()._grads(loss)
         self.model.reduce_names(self.model.names)
-        return loss
 
     def _set_grads(self, tree) -> None:
         self.model.set_master_grads(tree)

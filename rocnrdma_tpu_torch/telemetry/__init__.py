@@ -7,14 +7,19 @@ completion, plus copy-pool and ring-collective activity — into a
 bounded ring of fixed-size timestamped events, with log2-bucket
 latency/bandwidth histograms and a unified counter registry
 alongside. The Python tracer (``utils.trace``) covers the framework
-tiers (collectives, trainer, recovery ladder). Both run on ONE clock
-domain (CLOCK_MONOTONIC), so this package can merge them into a
-single timeline: a training step renders from ``ring_allreduce`` down
-to an individual chunk retransmit.
+tiers (collectives, trainer, recovery ladder). The two share one
+clock, CLOCK_MONOTONIC, so this package can merge them into a single
+timeline: a training step renders from ``ring_allreduce`` down to an
+individual chunk retransmit. ``torch.profiler`` stamps wall time
+(CLOCK_REALTIME), another clock: a span meets the device trace through
+the ``record_function`` range it opens while the profiler records, and
+carries its device time as ``dev_s`` (``utils.trace``), which the
+Perfetto export passes on as a slice argument.
 
 Knobs:
   TDR_TELEMETRY       1 = record (default off; off costs one branch
-                      per native event site)
+                      per native event site); on, device spans carry
+                      dev_s
   TDR_TELEMETRY_RING  native ring capacity in events (default 65536)
   TDR_TRACE_RING      Python tracer ring capacity (pre-existing)
 

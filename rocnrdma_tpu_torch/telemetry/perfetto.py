@@ -16,7 +16,7 @@ post → tx → rx → land → verify → nak → retx → wc across the two
 ranks' tracks by its id). Python ``trace.span`` events (those with a
 ``dur_s`` field) render as complete ("X") slices, so a trainer step
 or a collective call appears as a bar over the chunk instants it
-contains.
+contains; a device-timed span's ``dev_s`` is one of its arguments.
 
 The export is DETERMINISTIC for a given event list: events are sorted
 by (ts, pid, tid, name, id) and serialized with sorted keys, so the

@@ -22,8 +22,9 @@ from rocnrdma_tpu_torch.utils.trace import trace
 
 @dataclass(frozen=True)
 class TelEvent:
-    """One timeline event, native or Python, in the shared
-    CLOCK_MONOTONIC nanosecond domain."""
+    """One timeline event, native or Python, in the nanoseconds of
+    CLOCK_MONOTONIC, the clock the native recorder and the Python
+    tracer share (not ``torch.profiler``'s, which is wall time)."""
 
     ts_ns: int
     name: str

@@ -565,8 +565,10 @@ def telemetry_enabled() -> bool:
 def telemetry_reset() -> None:
     """Re-read TDR_TELEMETRY / TDR_TELEMETRY_RING and clear the native
     ring, histograms, and recorded/dropped counts (set the env, then
-    call this — the tdr_fault_plan_reset idiom)."""
+    call this — the tdr_fault_plan_reset idiom). The tracer's device
+    spans follow the recorder's state."""
     _load().tdr_tel_reset()
+    trace.time_devices(telemetry_enabled())
 
 
 def telemetry_now_ns() -> int:

@@ -25,6 +25,10 @@ wrappers count while the step is recorded goes into a tally of its own
 (``_native.tally_launches``), since the capture launches nothing, and
 each replay adds that tally (``_native.count(name, n)``). Launches that
 other threads make meanwhile count as they happen, outside the tally.
+
+Each capture (the warm-up step and the recording) is a ``graph.capture``
+span of the tracer, so a graph captured again inside a traced unit shows
+by name.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 
 from ..ops import _native
+from .trace import trace
 
 __all__ = ["CapturedStep", "captures"]
 
@@ -77,7 +82,8 @@ class CapturedStep:
         if self.device.type != "cuda":
             self.fn()
         elif self.graph is None:
-            self._warm_and_capture()
+            with trace.span("graph.capture", self.device):
+                self._warm_and_capture()
         else:
             self.graph.replay()
             for name, n in self.launches.items():
