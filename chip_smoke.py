@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the five CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with
+Builds the six CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with
 nvcc, holds each against its plain PyTorch version at its path's shapes
 (and ragged, f32/bf16, causal/full variants), shows each backward kernel
-bitwise deterministic across two calls, times each, then drives the
+and K6 (``decode_attn``, the cached decode step's attention, at (a)'s
+and the benchmark cells' decode shapes) bitwise deterministic across
+two calls, times each, then drives the
 serving and training paths through the entry points a user calls. K3
 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5 (``flash_bwd_dq``) have
 two instances each, a tensor-core one (bf16 at D 64 and 128) and a
@@ -243,6 +245,8 @@ from rocnrdma_tpu_torch.ops.attention import (
     flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_shard_grads,
     flash_bwd_dkv, flash_bwd_dq, kernel_route)
+from rocnrdma_tpu_torch.ops.decode_attention import (
+    cached_attention, cached_attention_reference)
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                             rmsnorm_bwd_reference,
                                             rmsnorm_reference)
@@ -278,12 +282,18 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 #   relative, random in sign) average out over the sums of up to S
 #   terms; measured errors stay within the bf16 tolerance above, which
 #   is unchanged.
+# - K6 (decode attention) rounds each probability to bf16 before
+#   normalising where the plain version rounds after: a bf16 step of the
+#   output (2^-8 of values up to ~0.3) plus those roundings, so rtol
+#   2^-6 and atol 2^-8 in bf16; in f32 the sums' order only.
 TOL = {("rmsnorm", torch.float32): (1e-5, 1e-5),
        ("rmsnorm", torch.bfloat16): (2 ** -7, 2 ** -7),
        ("flash", torch.float32): (2e-4, 2e-4),
        ("flash", torch.bfloat16): (2e-2, 2e-2),
        ("lse", None): (2e-4, 2e-4),
-       ("dw", None): (1e-4, 1e-3)}
+       ("dw", None): (1e-4, 1e-3),
+       ("decode", torch.float32): (1e-4, 1e-5),
+       ("decode", torch.bfloat16): (2 ** -6, 2 ** -8)}
 
 # Full-forward logits, card (kernels, cuBLAS f32) against CPU (plain
 # versions): sums of 2048- and 5632-long products taken in another order
@@ -886,10 +896,70 @@ def phase_flash_bwd() -> dict:
             "control_smoke": 20}
 
 
-def expected_launches(cfg, forward_steps: int, prefills: int) -> dict:
+def decode_attn_case(b, h, kvh, t, d, pos, dtype, seed, timed) -> dict:
+    """K6 against its plain version over a whole cache of ``t``
+    positions with the query at ``pos``, as the graphed step calls it:
+    error, two calls bitwise equal; timed, its device ms beside the bound
+    (the live K/V and q read, out written, once), the plain version's
+    and SDPA's over the live prefix."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, h, 1, d, generator=g, device="cuda").mul(2).to(dtype)
+    k = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    q_pos = torch.tensor([pos], device="cuda")
+    got = cached_attention(q, k, v, q_pos)
+    torch.cuda.synchronize()
+    what = f"decode attention {(b, h, kvh, t, d)} pos {pos} {dtype}"
+    res = {"shape": [b, h, kvh, t, d], "pos": pos,
+           "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": max_err(got, cached_attention_reference(
+               q, k, v, q_pos), *TOL[("decode", dtype)], what)}
+    require(torch.equal(cached_attention(q, k, v, q_pos), got),
+            what + ": two calls differ")
+    if timed:
+        elt, live = q.element_size(), pos + 1
+        nbytes = (2 * b * kvh * live * d + 2 * b * h * d) * elt
+        ops = 4.0 * d * live * b * h
+        t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S
+        sets = input_sets((q, k, v, q_pos), out_bytes=q.numel() * elt)
+        res.update(
+            ms=time_ms(cached_attention, sets),
+            plain_ms=time_ms(cached_attention_reference, sets[:1], iters=3),
+            library_ms=time_ms(lambda a, kk, vv, _p: (
+                F.scaled_dot_product_attention(
+                    a, kk[:, :, :live], vv[:, :, :live], enable_gqa=True)),
+                sets),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes")
+    return res
+
+
+def phase_decode_attn() -> dict:
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [decode_attn_case(4, 32, 8, 640, 128, 540, bf, 51, True),  # (a)
+             # the decode cell's step (B 128, Mistral's heads, 1152
+             # positions) at its shortest, mean and longest live prefix
+             decode_attn_case(128, 32, 8, 1152, 128, 777, bf, 52, True),
+             decode_attn_case(128, 32, 8, 1152, 128, 960, bf, 53, True),
+             decode_attn_case(128, 32, 8, 1152, 128, 1144, bf, 54, True),
+             # the prefill cell's decode steps (B 16, 8320 positions)
+             decode_attn_case(16, 32, 8, 8320, 128, 8250, bf, 55, True),
+             # llama-tiny in f32, and llama3-1b's f32 heads
+             decode_attn_case(2, 4, 2, 128, 16, 37, f32, 56, False),
+             decode_attn_case(1, 16, 8, 640, 128, 600, f32, 57, True)]
+    return {"cases": cases}
+
+
+def expected_launches(cfg, forward_steps: int, prefills: int,
+                      decode_steps: int = 0) -> dict:
+    """Launches of a serving path: K1 2L + 1 times per forward step, K3
+    L times per prefill, K6 L times per cached decode step of
+    ``models/llama.py`` (the batcher's paged layers have their own
+    product)."""
     return {"rmsnorm_fwd": (2 * cfg.n_layers + 1) * forward_steps,
             "flash_fwd": cfg.n_layers * prefills,
-            "rmsnorm_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+            "rmsnorm_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+            "decode_attn": cfg.n_layers * decode_steps}
 
 
 def expected_train_launches(model, steps: int) -> dict:
@@ -905,7 +975,7 @@ def expected_train_launches(model, steps: int) -> dict:
     per_step = {"rmsnorm_fwd": norms + again * block_norms,
                 "flash_fwd": attns * (1 + again),
                 "rmsnorm_bwd": norms, "flash_bwd_dq": attns,
-                "flash_bwd_dkv": attns}
+                "flash_bwd_dkv": attns, "decode_attn": 0}
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -975,7 +1045,8 @@ def phase_generate_8b() -> dict:
     total_s = time.perf_counter() - t0
     launches = _native.launches()
     peak = torch.cuda.max_memory_allocated()
-    want = expected_launches(cfg, forward_steps=new, prefills=1)
+    want = expected_launches(cfg, forward_steps=new, prefills=1,
+                             decode_steps=new - 1)
     require(launches == want, f"path (a) launches {launches} != {want}")
     require(graphs.captures() == captured + 1,
             "a call with a memoized loop captured again")
@@ -1505,7 +1576,7 @@ def phase_train_1b(policy: str = "full") -> dict:
     L = cfg.n_layers
     require(per_step == {"rmsnorm_fwd": 4 * L + 1, "flash_fwd": 2 * L,
                          "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
-                         "flash_bwd_dkv": L},
+                         "flash_bwd_dkv": L, "decode_attn": 0},
             f"path (c) launches per step {per_step}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -2842,7 +2913,7 @@ def expected_sp_launches(cfg, mode: str, rank: int) -> dict:
     return {"rmsnorm_fwd": norms + (2 * L if cfg.remat else 0),
             "flash_fwd": L * shards * (1 if mode == "ring" else 2),
             "rmsnorm_bwd": norms, "flash_bwd_dq": L * shards,
-            "flash_bwd_dkv": L * shards}
+            "flash_bwd_dkv": L * shards, "decode_attn": 0}
 
 
 def sp_bytes(cfg, mode: str, rank: int, world: int, b: int,
@@ -3003,7 +3074,7 @@ def expected_mesh_launches(cfg, positions: int) -> dict:
     per_position = {"rmsnorm_fwd": 2 * L + 1 + again * 2 * L,
                     "flash_fwd": L * (1 + again),
                     "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
-                    "flash_bwd_dkv": L}
+                    "flash_bwd_dkv": L, "decode_attn": 0}
     return {k: v * positions for k, v in per_position.items()}
 
 
@@ -3445,7 +3516,7 @@ def phase_ring_attention_demo() -> dict:
     launches = _native.launches()
     pairs = w + w * (w - 1) // 2
     want = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_fwd": pairs,
-            "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs}
+            "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs, "decode_attn": 0}
     require(launches == want, f"demo launches {launches} != {want}")
     t0 = time.perf_counter()
     errs = demo.max_errors(res)
@@ -3551,6 +3622,7 @@ def main() -> int:
     fl = run_phase("k3_flash_vs_plain", phase_flash)
     rms_bwd = run_phase("k2_rmsnorm_bwd_vs_plain", phase_rmsnorm_bwd)
     fl_bwd = run_phase("k4_k5_flash_bwd_vs_plain", phase_flash_bwd)
+    k6 = run_phase("k6_decode_attn_vs_plain", phase_decode_attn)
     gen = run_phase("path_a_generate_llama3_8b", phase_generate_8b)
 
     cfg1 = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
@@ -3670,6 +3742,17 @@ def main() -> int:
                      path_g=bwd("dq", ("dq",), fl_bwd["path_g"]),
                      path_i=bwd("dq", ("dq",), [fl_bwd["path_i"]]),
                      scalar_f32=bwd("dq", ("dq",), fl_bwd["scalar_f32"]))]
+    k6a = k6["cases"][0]
+    kernels.append({
+        **kernel_entry("decode_attn", "", by_path, k6a, k6a["max_abs_err"],
+                       k6a["ms"], k6a["bound_ms"], k6a["bound_by"]),
+        "replaces": "none: the cached einsum pair of "
+                    "rocnrdma_tpu/models/llama.py:238-246",
+        "cells": [{key: c[key] for key in ("shape", "pos", "dtype",
+                                           "max_abs_err", "ms", "bound_ms",
+                                           "bound_by", "plain_ms",
+                                           "library_ms")}
+                  for c in k6["cases"][1:5]]})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

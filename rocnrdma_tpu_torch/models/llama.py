@@ -24,10 +24,12 @@ Where the kernels run:
   second time per block. ``remat_policy`` "full" recomputes everything;
   "dots" (:func:`checkpoint_block`) keeps the outputs of the block's
   projections and recomputes the rest, K1 and K3 included;
-- cached decode (``pos > 0``) keeps the plain grouped-query product
-  against the cache, as the JAX package computes it outside any kernel:
-  f32 scores, softmax, probs cast to the model dtype before the value
-  product.
+- cached decode (``pos > 0``) goes through
+  :func:`~rocnrdma_tpu_torch.ops.decode_attention.cached_attention`, the
+  K6 kernel, which reads the cache in place up to the last query's
+  position with f32 sums (the JAX package's two einsums with
+  ``preferred_element_type=f32``): f32 scores, softmax, probs cast to
+  the model dtype before the value product.
 
 ``pos`` is a Python int or a 0-d int64 tensor on the model's device
 (the JAX package's traced ``pos``). Either way the RoPE angles come by
@@ -35,9 +37,10 @@ Where the kernels run:
 arange(s)``, and the product runs under the mask ``arange(T) <= q_pos``
 (:func:`cached_attention`); an int position 0 goes through K3 instead,
 and an int ``pos`` cuts the keys to the prefix. With a tensor the
-product runs over the whole cache, so no shape depends on ``pos``:
+product takes the whole cache, so no shape depends on ``pos``:
 ``generate`` captures one decode step as a CUDA graph and replays it
-(:class:`DecodeLoop`).
+(:class:`DecodeLoop`), and K6 reads ``pos`` on the device at each replay
+and stops at the live prefix.
 
 Weight layout: every projection keeps flax's ``Dense`` layout
 ``(in, out)`` and is applied as ``x @ W`` — no transpose anywhere, so
@@ -62,6 +65,7 @@ import torch.utils.checkpoint
 
 from .. import DeviceLike, resolve_device
 from ..ops.attention import attention
+from ..ops.decode_attention import cached_attention
 from ..ops.rmsnorm import rmsnorm
 from ..utils.graphs import CapturedStep
 from ..utils.trace import trace
@@ -259,31 +263,6 @@ class Attention(nn.Module):
             return attention(q, k, v, causal=True)
         return cached_attention(q, cache["k"][:, :, :t], cache["v"][:, :, :t],
                                 q_pos)
-
-
-def cached_attention(q: torch.Tensor, k_all: torch.Tensor,
-                     v_all: torch.Tensor,
-                     q_pos: torch.Tensor) -> torch.Tensor:
-    """Plain grouped-query attention of q (B, H, s, hd) at the absolute
-    positions ``q_pos`` (s,) against the cache k_all/v_all (B, KVH, T,
-    hd), keys past each query masked: the JAX package's decode product
-    (``arange(T) <= q_pos``). T is the whole cache (the static-shape
-    step) or the prefix up to the last query (an int ``pos``): the keys
-    past the prefix are masked keys, which weigh exactly zero. f32
-    scores, probs cast to q's dtype before the value product."""
-    b, h, s, hd = q.shape
-    kvh, t = k_all.shape[1], k_all.shape[2]
-    rep = h // kvh
-    # The group is folded into the query rows (b, kvh, rep * s, hd), so
-    # the cache is never repeated per query head.
-    qg = q.float().reshape(b, kvh, rep * s, hd)
-    scores = (qg @ k_all.float().transpose(-1, -2)) / math.sqrt(hd)
-    visible = (torch.arange(t, device=q.device)[None, :]
-               <= q_pos.repeat(rep)[:, None])
-    scores = scores.masked_fill(~visible, float("-inf"))
-    probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    o = probs.float() @ v_all.float()
-    return o.to(q.dtype).reshape(b, h, s, hd)
 
 
 class MLP(nn.Module):

@@ -19,6 +19,9 @@ into an exception.
 Importing this module compiles nothing and needs no compiler: a host
 without ``nvcc`` fails only when a kernel is first launched.
 
+``decode_attn`` (K6, the decode step's cached attention) launches two
+device functions when it splits the keys, and counts as one launch.
+
 Route queries: the three attention kernels, ``flash_fwd`` (K3),
 ``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
 each, a tensor-core one (bf16 at D 64 and 128) and a scalar one (f32,
@@ -64,6 +67,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C signatures of the entries, one library per source.
 SIGNATURES = {
@@ -76,8 +80,14 @@ SIGNATURES = {
                                       _I, _I, _I, _F, _I, _I, _P]),
     "flash_bwd_dkv": ("flash_bwd_dkv", [_P, _P, _P, _P, _P, _P, _P, _P, _I,
                                         _I, _I, _I, _I, _F, _I, _I, _P]),
+    "decode_attn": ("decode_attn", [_P] * 7 + [_I] * 7 + [_L] * 9
+                    + [_F, _I, _P]),
 }
 KERNELS = tuple(SIGNATURES)
+# K6's device functions (``__global__``), by the names their symbols
+# start with. The benchmark finds K1-K5 in a trace by substring, so none
+# of these may contain one of their names.
+DECODE_ATTN_FUNCTIONS = ("decode_attn_split", "decode_attn_combine")
 # Kernels with more than one instance, and the C function that names the
 # one their entry launches for (D, dtype).
 ROUTES = {"flash_fwd": "flash_fwd_route",

@@ -178,7 +178,7 @@ def test_autograd_on_the_card_launches_every_backward_kernel(cuda):
     torch.cuda.synchronize()
     assert _native.launches() == {"rmsnorm_fwd": 1, "flash_fwd": 1,
                                   "rmsnorm_bwd": 1, "flash_bwd_dq": 1,
-                                  "flash_bwd_dkv": 1}
+                                  "flash_bwd_dkv": 1, "decode_attn": 0}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
 
 
@@ -433,9 +433,9 @@ def test_graphed_generate_equals_uncaptured_step(cuda, temperature):
 @pytest.mark.gpu
 def test_graphed_generate_launch_counts_exact(cuda):
     """Launches through replays: each call counts K1 (2L + 1) times per
-    token and K3 L times (the prefill), whether its decode step was
-    captured in the call (the first) or only replayed (the second, which
-    captures nothing)."""
+    token, K3 L times (the prefill) and K6 L times per decode step,
+    whether its decode step was captured in the call (the first) or only
+    replayed (the second, which captures nothing)."""
     model = _tiny_model(cuda)
     prompt = torch.randint(0, 256, (3, 5), device=cuda)
     n_layers, new = model.cfg.n_layers, 9
@@ -447,7 +447,7 @@ def test_graphed_generate_launch_counts_exact(cuda):
         assert _native.launches() == {
             "rmsnorm_fwd": (2 * n_layers + 1) * new,
             "flash_fwd": n_layers, "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
-            "flash_bwd_dkv": 0}
+            "flash_bwd_dkv": 0, "decode_attn": n_layers * (new - 1)}
     assert graphs.captures() == before + 1
 
 

@@ -24,6 +24,8 @@ from rocnrdma_tpu_torch.ops import _native
 from rocnrdma_tpu_torch.ops.attention import (
     attention, attention_reference, flash_attention_lse,
     flash_attention_lse_reference)
+from rocnrdma_tpu_torch.ops.decode_attention import (
+    cached_attention, cached_attention_reference)
 from rocnrdma_tpu_torch.ops.rmsnorm import rmsnorm, rmsnorm_reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -116,7 +118,7 @@ def test_attention_reference_matches_jax(causal):
 def test_cpu_wrappers_launch_no_kernel():
     """On CPU tensors the wrappers take the plain versions, forward and
     backward, and count no launch; the counters are plain integers that
-    reset to zero, one per kernel of the five."""
+    reset to zero, one per kernel of the six."""
     _native.reset_launches()
     x, w = torch.randn(3, 16), torch.rand(16)
     assert torch.equal(rmsnorm(x, w), rmsnorm_reference(x, w))
@@ -129,9 +131,12 @@ def test_cpu_wrappers_launch_no_kernel():
     qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
     attention(qg, kg, kg).sum().backward()
     assert xg.grad is not None and kg.grad is not None
+    pos = torch.tensor([4])
+    assert torch.equal(cached_attention(q[:, :, :1], k, k, pos),
+                       cached_attention_reference(q[:, :, :1], k, k, pos))
     assert _native.launches() == {"rmsnorm_fwd": 0, "flash_fwd": 0,
                                   "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0}
+                                  "flash_bwd_dkv": 0, "decode_attn": 0}
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 102),
