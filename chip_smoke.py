@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the six CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with
-nvcc, holds each against its plain PyTorch version at its path's shapes
-(and ragged, f32/bf16, causal/full variants), shows each backward kernel
-and K6 (``decode_attn``, the cached decode step's attention, at (a)'s
-and the benchmark cells' decode shapes) bitwise deterministic across
-two calls, times each, then drives the
+Builds the CUDA kernels from ``rocnrdma_tpu_torch/csrc/`` with nvcc,
+holds each against its plain PyTorch version at its path's shapes (and
+ragged, f32/bf16, causal/full variants), shows each backward kernel, K6
+(``decode_attn``, the cached decode step's attention, at (a)'s and the
+benchmark cells' decode shapes), K7 (``mla_decode``, the latent-attention
+decode step's) and G1 (``moe_gemm_up`` and ``moe_gemm_down``, the expert
+layer's grouped GEMMs), both at the decode-mla cell's shapes, bitwise
+deterministic across two calls, times each, then drives the
 serving and training paths through the entry points a user calls. K3
 (``flash_fwd``), K4 (``flash_bwd_dkv``) and K5 (``flash_bwd_dq``) have
 two instances each, a tensor-core one (bf16 at D 64 and 128) and a
@@ -213,6 +215,7 @@ import faulthandler
 import importlib.util
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -245,6 +248,8 @@ from rocnrdma_tpu_torch.ops.attention import (
     flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_shard_grads,
     flash_bwd_dkv, flash_bwd_dq, kernel_route)
+from rocnrdma_tpu_torch.ops import mla_decode as mld
+from rocnrdma_tpu_torch.ops import moe
 from rocnrdma_tpu_torch.ops.decode_attention import (
     cached_attention, cached_attention_reference)
 from rocnrdma_tpu_torch.ops.rmsnorm import (rmsnorm, rmsnorm_bwd,
@@ -286,6 +291,11 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
 #   normalising where the plain version rounds after: a bf16 step of the
 #   output (2^-8 of values up to ~0.3) plus those roundings, so rtol
 #   2^-6 and atol 2^-8 in bf16; in f32 the sums' order only.
+# - K7 (latent decode) rounds its probabilities as K6 does, and G1 (the
+#   grouped GEMMs) sums bf16 products in f32 in another order than the
+#   per-expert loop, which rounds where the kernels round: both get K6's
+#   rtol 2^-6 and an atol of 2^-8 of the output's largest magnitude
+#   (as tests/test_torch_mla_moe.py holds them).
 TOL = {("rmsnorm", torch.float32): (1e-5, 1e-5),
        ("rmsnorm", torch.bfloat16): (2 ** -7, 2 ** -7),
        ("flash", torch.float32): (2e-4, 2e-4),
@@ -950,6 +960,122 @@ def phase_decode_attn() -> dict:
     return {"cases": cases}
 
 
+# The latent-attention, routed-expert model's kernels (K7, G1), which no
+# Llama path launches.
+NOT_ON_LLAMA = {"mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0}
+
+
+def mla_decode_case(b, t, pos, seed, timed) -> dict:
+    """K7 against its plain version over a latent cache of ``t``
+    positions (16 heads of 512 + 64, bf16) with the query at ``pos``, as
+    the graphed step calls it: error, two calls bitwise equal; timed, its
+    device ms beside its bound (the live cache rows, q and out, once:
+    bytes) and the plain version's. No library kernel takes 16 heads
+    over one shared 576-wide key."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(b, mld.HEADS, mld.LATENT + mld.ROPE, generator=g,
+                    device="cuda").bfloat16()
+    ckv = torch.randn(b, t, mld.LATENT + mld.ROPE, generator=g,
+                      device="cuda").bfloat16()
+    q_pos = torch.tensor([pos], device="cuda")
+    scale = 1 / math.sqrt(192)
+
+    def k7(a, c, p):
+        return mld.mla_decode(a, c, p, scale, mld.LATENT)
+
+    def plain(a, c, p):
+        return mld.mla_decode_reference(a, c, p, scale, mld.LATENT)
+
+    got = k7(q, ckv, q_pos)
+    torch.cuda.synchronize()
+    want = plain(q, ckv, q_pos)
+    what = f"latent decode {(b, t)} pos {pos}"
+    res = {"shape": [b, mld.HEADS, t, mld.LATENT + mld.ROPE], "pos": pos,
+           "dtype": "bfloat16",
+           "max_abs_err": max_err(got, want, TOL[("decode", torch.bfloat16)][0],
+                                  2 ** -8 * float(want.float().abs().max()),
+                                  what)}
+    require(torch.equal(k7(q, ckv, q_pos), got), what + ": two calls differ")
+    if timed:
+        nbytes = (b * (pos + 1) * ckv.shape[2] + q.numel()
+                  + b * mld.HEADS * mld.LATENT) * 2
+        sets = input_sets((q, ckv, q_pos), out_bytes=got.numel() * 2)
+        res.update(ms=time_ms(k7, sets),
+                   plain_ms=time_ms(plain, sets[:1], iters=3),
+                   library_ms=None,
+                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+    return res
+
+
+def grouped_gemm_case(n, seed, timed) -> dict:
+    """G1 (``moe.grouped_swiglu``: ``align``, the two grouped GEMMs, the
+    pick sum) against the per-expert loop at Moonlight's widths (64
+    experts of 2048 → 1408, 6 a token) over ``n`` tokens: error, two calls
+    bitwise equal; timed, the call's device ms beside the two GEMMs'
+    bound (every expert's weights and the rows read once, the rows'
+    products: the larger of bytes and operations) and the plain loop's
+    wall ms."""
+    e, d, f, k = 64, 2048, 1408, 6
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
+    router = (torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
+              ).bfloat16()
+    ids, wts = moe.route(x, router, torch.zeros(e, device="cuda"), k, 2.446)
+    ws = [(torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
+           ).bfloat16(),
+          (torch.randn(e, d, f, generator=g, device="cuda") / d ** 0.5
+           ).bfloat16(),
+          (torch.randn(e, f, d, generator=g, device="cuda") / f ** 0.5
+           ).bfloat16()]
+    got = moe.grouped_swiglu(x, ids, wts, *ws)
+    torch.cuda.synchronize()
+    want = moe.grouped_swiglu_reference(x, ids, wts, *ws)
+    what = f"grouped swiglu {n} tokens"
+    res = {"shape": [n, k, e, d, f], "dtype": "bfloat16",
+           "block_rows": moe.block_rows(n * k, e),
+           "max_abs_err": max_err(got, want, TOL[("decode", torch.bfloat16)][0],
+                                  2 ** -8 * float(want.float().abs().max()),
+                                  what)}
+    require(torch.equal(moe.grouped_swiglu(x, ids, wts, *ws), got),
+            what + ": two calls differ")
+    if timed:
+        rows = n * k
+        nbytes = (3 * e * d * f + 2 * rows * d + 2 * rows * f) * 2
+        ops = 6.0 * rows * d * f
+        t_ops = ops / PEAK_OPS[torch.bfloat16]
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        sets = input_sets((x, ids, wts, *ws), out_bytes=x.numel() * 2)
+        # The plain loop picks each expert's tokens with a host
+        # synchronisation, so it cannot be captured: timed eagerly.
+        res.update(ms=time_ms(moe.grouped_swiglu, sets),
+                   plain_ms=eager_ms(lambda: moe.grouped_swiglu_reference(
+                       x, ids, wts, *ws), 2),
+                   library_ms=None,
+                   bound_ms=max(t_ops, t_bytes) * 1e3,
+                   bound_by="operations" if t_ops > t_bytes else "bytes")
+    return res
+
+
+def phase_mla_moe_kernels() -> dict:
+    """K7 and G1 at the decode-mla cell's shapes: K7 over its 4224-long
+    cache (B 64) at the mean and last positions, G1 over a decode step's
+    64 tokens (16-row blocks) and 4096 tokens (128-row blocks, as a
+    prefill chunk runs them); each also small. Launches: one K7 a call,
+    one of each GEMM a call."""
+    _native.reset_launches()
+    k7 = [mla_decode_case(64, 4224, 4033, 61, True),
+          mla_decode_case(64, 4224, 4223, 62, True),
+          mla_decode_case(3, 300, 150, 63, False)]
+    g1 = [grouped_gemm_case(64, 64, True), grouped_gemm_case(4096, 65, True),
+          grouped_gemm_case(5, 66, False)]
+    torch.cuda.synchronize()
+    launches = _native.launches()
+    require(launches["mla_decode"] >= 2 * len(k7)
+            and launches["moe_gemm_up"] == launches["moe_gemm_down"]
+            >= 2 * len(g1), f"K7/G1 launches {launches}")
+    return {"k7": k7, "g1": g1}
+
+
 def expected_launches(cfg, forward_steps: int, prefills: int,
                       decode_steps: int = 0) -> dict:
     """Launches of a serving path: K1 2L + 1 times per forward step, K3
@@ -959,7 +1085,7 @@ def expected_launches(cfg, forward_steps: int, prefills: int,
     return {"rmsnorm_fwd": (2 * cfg.n_layers + 1) * forward_steps,
             "flash_fwd": cfg.n_layers * prefills,
             "rmsnorm_bwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-            "decode_attn": cfg.n_layers * decode_steps}
+            "decode_attn": cfg.n_layers * decode_steps, **NOT_ON_LLAMA}
 
 
 def expected_train_launches(model, steps: int) -> dict:
@@ -975,7 +1101,8 @@ def expected_train_launches(model, steps: int) -> dict:
     per_step = {"rmsnorm_fwd": norms + again * block_norms,
                 "flash_fwd": attns * (1 + again),
                 "rmsnorm_bwd": norms, "flash_bwd_dq": attns,
-                "flash_bwd_dkv": attns, "decode_attn": 0}
+                "flash_bwd_dkv": attns, "decode_attn": 0,
+                **NOT_ON_LLAMA}
     return {k: v * steps for k, v in per_step.items()}
 
 
@@ -1576,7 +1703,8 @@ def phase_train_1b(policy: str = "full") -> dict:
     L = cfg.n_layers
     require(per_step == {"rmsnorm_fwd": 4 * L + 1, "flash_fwd": 2 * L,
                          "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
-                         "flash_bwd_dkv": L, "decode_attn": 0},
+                         "flash_bwd_dkv": L, "decode_attn": 0,
+                         **NOT_ON_LLAMA},
             f"path (c) launches per step {per_step}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
@@ -2913,7 +3041,8 @@ def expected_sp_launches(cfg, mode: str, rank: int) -> dict:
     return {"rmsnorm_fwd": norms + (2 * L if cfg.remat else 0),
             "flash_fwd": L * shards * (1 if mode == "ring" else 2),
             "rmsnorm_bwd": norms, "flash_bwd_dq": L * shards,
-            "flash_bwd_dkv": L * shards, "decode_attn": 0}
+            "flash_bwd_dkv": L * shards, "decode_attn": 0,
+            **NOT_ON_LLAMA}
 
 
 def sp_bytes(cfg, mode: str, rank: int, world: int, b: int,
@@ -3074,7 +3203,8 @@ def expected_mesh_launches(cfg, positions: int) -> dict:
     per_position = {"rmsnorm_fwd": 2 * L + 1 + again * 2 * L,
                     "flash_fwd": L * (1 + again),
                     "rmsnorm_bwd": 2 * L + 1, "flash_bwd_dq": L,
-                    "flash_bwd_dkv": L, "decode_attn": 0}
+                    "flash_bwd_dkv": L, "decode_attn": 0,
+                    **NOT_ON_LLAMA}
     return {k: v * positions for k, v in per_position.items()}
 
 
@@ -3516,7 +3646,8 @@ def phase_ring_attention_demo() -> dict:
     launches = _native.launches()
     pairs = w + w * (w - 1) // 2
     want = {"rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "flash_fwd": pairs,
-            "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs, "decode_attn": 0}
+            "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs, "decode_attn": 0,
+            **NOT_ON_LLAMA}
     require(launches == want, f"demo launches {launches} != {want}")
     t0 = time.perf_counter()
     errs = demo.max_errors(res)
@@ -3623,6 +3754,7 @@ def main() -> int:
     rms_bwd = run_phase("k2_rmsnorm_bwd_vs_plain", phase_rmsnorm_bwd)
     fl_bwd = run_phase("k4_k5_flash_bwd_vs_plain", phase_flash_bwd)
     k6 = run_phase("k6_decode_attn_vs_plain", phase_decode_attn)
+    k7g1 = run_phase("k7_g1_mla_moe_vs_plain", phase_mla_moe_kernels)
     gen = run_phase("path_a_generate_llama3_8b", phase_generate_8b)
 
     cfg1 = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
@@ -3753,6 +3885,25 @@ def main() -> int:
                                            "bound_by", "plain_ms",
                                            "library_ms")}
                   for c in k6["cases"][1:5]]})
+    cell_keys = ("shape", "max_abs_err", "ms", "bound_ms", "bound_by",
+                 "plain_ms", "library_ms")
+    k7a = k7g1["k7"][0]
+    kernels.append({
+        **kernel_entry("mla_decode", "", by_path, k7a, k7a["max_abs_err"],
+                       k7a["ms"], k7a["bound_ms"], k7a["bound_by"]),
+        "replaces": "none: the JAX package has no latent attention",
+        "cells": [{key: c[key] for key in cell_keys + ("pos",)}
+                  for c in k7g1["k7"][:2]]})
+    g1a = k7g1["g1"][0]
+    for name in ("moe_gemm_up", "moe_gemm_down"):
+        kernels.append({
+            **kernel_entry(name, "", by_path, g1a, g1a["max_abs_err"],
+                           g1a["ms"], g1a["bound_ms"], g1a["bound_by"]),
+            "replaces": "none: the JAX package has no experts",
+            "note": "G1: ms, plain_ms and bound_ms are of the whole grouped "
+                    "SwiGLU (align, both GEMMs, the pick sum)",
+            "cells": [{key: c[key] for key in cell_keys + ("block_rows",)}
+                      for c in k7g1["g1"][:2]]})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -330,6 +330,19 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def init_cache(self, batch: int, max_seq: Optional[int] = None,
+                   device: DeviceLike = None) -> List[Dict[str, torch.Tensor]]:
+        """:func:`init_cache` for this model, on its device by default."""
+        return init_cache(self.cfg, batch, max_seq,
+                          self.device if device is None else device)
+
+    def cache_nbytes(self, batch: int, max_seq: int) -> int:
+        """Bytes of :meth:`init_cache`'s K/V for ``batch`` rows of
+        ``max_seq`` positions."""
+        cfg = self.cfg
+        return (2 * cfg.n_layers * batch * cfg.n_kv_heads * max_seq
+                * cfg.head_dim * cfg.dtype.itemsize)
+
     def forward(self, tokens: torch.Tensor,
                 cache: Optional[List[Dict[str, torch.Tensor]]] = None,
                 pos: Union[int, torch.Tensor] = 0) -> torch.Tensor:
@@ -453,7 +466,7 @@ class DecodeLoop:
         self.temperature = float(temperature)
         self.generator = torch.Generator(device=dev)
         with torch.inference_mode():
-            self.cache = init_cache(model.cfg, b, cache_len, dev)
+            self.cache = model.init_cache(b, cache_len, dev)
             self.tok = torch.zeros(b, dtype=torch.long, device=dev)
             self.pos = torch.zeros((), dtype=torch.long, device=dev)
             self.start = torch.zeros((), dtype=torch.long, device=dev)
@@ -476,7 +489,7 @@ class DecodeLoop:
     def nbytes(self) -> int:
         """Device bytes of the static buffers (the cache dominates)."""
         return sum(t.nbytes for t in itertools.chain(
-            (c[kv] for c in self.cache for kv in ("k", "v")),
+            (t for c in self.cache for t in c.values()),
             (self.tok, self.pos, self.start, self.out)))
 
     def start_sequence(self, prompt: torch.Tensor) -> None:
@@ -486,8 +499,8 @@ class DecodeLoop:
         p = prompt.shape[1]
         with torch.inference_mode():
             for c in self.cache:
-                c["k"].zero_()
-                c["v"].zero_()
+                for t in c.values():
+                    t.zero_()
             first = _pick(self.model()(prompt, self.cache, 0)[:, -1],
                           self.temperature, self.generator)
             self.tok.copy_(first)
@@ -573,9 +586,7 @@ def _decode_loop(model: Llama, b: int, cache_len: int,
     if loop is not None and loop.model() is model:
         return loop
     _GEN_CACHE.pop(key, None)
-    cfg = model.cfg
-    need = 2 * cfg.n_layers * b * cfg.n_kv_heads * cache_len * \
-        cfg.head_dim * cfg.dtype.itemsize
+    need = model.cache_nbytes(b, cache_len)
     while _GEN_CACHE and (
             len(_GEN_CACHE) >= _GEN_CACHE_MAX
             or need + sum(v.nbytes for v in _GEN_CACHE.values())

@@ -19,8 +19,11 @@ into an exception.
 Importing this module compiles nothing and needs no compiler: a host
 without ``nvcc`` fails only when a kernel is first launched.
 
-``decode_attn`` (K6, the decode step's cached attention) launches two
-device functions when it splits the keys, and counts as one launch.
+``decode_attn`` (K6, the decode step's cached attention) and
+``mla_decode`` (K7, the latent-attention decode step's) each launch two
+device functions when they split the keys, and count as one launch.
+``moe_gemm_up`` and ``moe_gemm_down`` (G1, the expert layer's grouped
+GEMMs, ``ops/moe.py``) share the header ``csrc/moe_gemm.cuh``.
 
 Route queries: the three attention kernels, ``flash_fwd`` (K3),
 ``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
@@ -82,12 +85,21 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _F, _I, _I, _P]),
     "decode_attn": ("decode_attn", [_P] * 7 + [_I] * 7 + [_L] * 9
                     + [_F, _I, _P]),
+    "mla_decode": ("mla_decode", [_P] * 6 + [_I] * 3 + [_L] * 4 + [_F, _P]),
+    "moe_gemm_up": ("moe_gemm_up", [_P] * 6 + [_I] * 7 + [_L] * 4 + [_P]),
+    "moe_gemm_down": ("moe_gemm_down", [_P] * 5 + [_I] * 5 + [_L] * 4
+                      + [_P]),
 }
 KERNELS = tuple(SIGNATURES)
 # K6's device functions (``__global__``), by the names their symbols
 # start with. The benchmark finds K1-K5 in a trace by substring, so none
 # of these may contain one of their names.
 DECODE_ATTN_FUNCTIONS = ("decode_attn_split", "decode_attn_combine")
+# K7's device functions, named apart from K1-K6's in the same way.
+MLA_DECODE_FUNCTIONS = ("mla_decode_split", "mla_decode_combine")
+# G1's device functions (templates, one instance for few rows a block and
+# one for many), named apart from K1-K7's in the same way.
+MOE_GEMM_FUNCTIONS = ("moe_gemm_up_kernel", "moe_gemm_down_kernel")
 # Kernels with more than one instance, and the C function that names the
 # one their entry launches for (D, dtype).
 ROUTES = {"flash_fwd": "flash_fwd_route",

@@ -1,0 +1,207 @@
+"""The expert layer's routing and its grouped SwiGLU: two hand-written
+CUDA kernels (the grouped GEMMs) and their plain version.
+
+No Pallas kernel stands behind them: the JAX package has no experts.
+:func:`route` is DeepSeek-V3's ``noaux_tc`` selection with one group:
+sigmoid scores in f32, the ``top_k`` of score + correction bias picked,
+the picked scores normalised and scaled. :func:`grouped_swiglu` computes
+every pick, none dropped: ``Σ_j w_j · SwiGLU_{e_j}(x)`` per token.
+
+On the card, with no host synchronisation (so the decode step captures
+as a CUDA graph):
+
+1. :func:`align` lays the picks out by expert, each expert's rows padded
+   to a multiple of the block's rows ``BM``, in a buffer of a size fixed
+   by the shapes alone (``rows + experts · (BM - 1)``, rounded up);
+2. ``moe_gemm_up`` (``csrc/moe_gemm_up.cu``) takes, for each block of
+   ``BM`` rows of one expert and a block of output columns, the rows'
+   tokens' x against that expert's gate and up columns, and writes
+   ``silu(gate) · up`` rounded to the model dtype;
+3. ``moe_gemm_down`` (``csrc/moe_gemm_down.cu``) multiplies those rows by
+   the expert's down projection and scales each row by its routing
+   weight (f32, rounded once to the model dtype);
+4. each token sums its ``top_k`` rows in f32, in pick order, rounded
+   once.
+
+Bound on H100: in a decode step (64 tokens, 6 picks, ~6 rows an expert)
+bytes, every expert's weights read once; in a prefill chunk (~6,000 rows
+an expert) operations. ``csrc/moe_gemm.cuh`` says how the two instances
+of its design (16 rows a block and 128) meet each.
+
+:func:`grouped_swiglu` dispatches on the device: CUDA tensors launch the
+kernels, CPU tensors run :func:`grouped_swiglu_reference`, a plain loop
+over the experts with the same roundings; any other device raises, and
+so does a shape or dtype the kernels do not take (there is no fallback).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _native
+
+__all__ = ["route", "align", "grouped_swiglu", "grouped_swiglu_reference",
+           "block_rows"]
+
+
+def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
+          top_k: int, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (N, d), router (d, E), bias (E,) f32 → the picked experts (N,
+    top_k) int64 and their weights (N, top_k) f32: ``s = sigmoid(x ·
+    router)`` in f32, picks ``top_k(s + bias)``, weights ``s`` of the
+    picks over their sum, times ``scale``. The bias moves the picks, not
+    the weights."""
+    s = torch.sigmoid(x.float() @ router.float())
+    ids = torch.topk(s + bias, top_k, dim=-1).indices
+    w = s.gather(1, ids)
+    return ids, w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+
+
+def grouped_swiglu_reference(x: torch.Tensor, ids: torch.Tensor,
+                             wts: torch.Tensor, w_gate: torch.Tensor,
+                             w_up: torch.Tensor,
+                             w_down: torch.Tensor) -> torch.Tensor:
+    """The plain version: a loop over the experts, each taking the
+    tokens that picked it. Products in f32; ``silu(gate) · up`` rounded
+    to x's dtype, each pick's weighted output rounded to x's dtype, the
+    picks summed in f32 in pick order and rounded once, as the kernels
+    round."""
+    n, k = ids.shape
+    picks = torch.zeros(n, k, x.shape[1], dtype=x.dtype, device=x.device)
+    for e in range(w_gate.shape[0]):
+        tok, slot = (ids == e).nonzero(as_tuple=True)
+        if tok.numel() == 0:
+            continue
+        xe = x[tok].float()
+        h = (F.silu(xe @ w_gate[e].float()) * (xe @ w_up[e].float())
+             ).to(x.dtype)
+        o = (h.float() @ w_down[e].float()) * wts[tok, slot, None]
+        picks[tok, slot] = o.to(x.dtype)
+    acc = picks[:, 0].float()
+    for j in range(1, k):
+        acc = acc + picks[:, j].float()
+    return acc.to(x.dtype)
+
+
+# Rows a block of the kernels holds, for few rows an expert (a decode
+# step: each expert's weights read by one block of rows) and for many (a
+# prefill chunk: 128 x 128 tensor-core tiles). The tiles themselves are
+# the CUDA sources' (``Few``, ``Many``).
+FEW_ROWS, MANY_ROWS = 16, 128
+
+
+def block_rows(rows: int, n_experts: int) -> int:
+    """The kernels' rows a block for ``rows`` picks over ``n_experts``:
+    16 for up to 32 an expert on average (a decode step), else 128."""
+    return FEW_ROWS if rows <= 32 * n_experts else MANY_ROWS
+
+
+def align(ids: torch.Tensor, n_experts: int, bm: int):
+    """The picks (N, k) laid out by expert, on the device with no host
+    synchronisation: ``dest`` (N, k), each pick's padded row;
+    ``row_slot`` (cap,) int32, each padded row's pick (token · k + j),
+    ``N · k`` for a padding row; ``block_expert`` (cap / bm,) int32, the
+    expert of each block of ``bm`` rows, ``n_experts`` past the last.
+    ``cap = N·k + n_experts·(bm - 1)`` rounded up to ``bm``, a size fixed
+    by the shapes."""
+    flat = ids.reshape(-1)
+    rows = flat.numel()
+    dev = ids.device
+    experts = torch.arange(n_experts, device=dev)
+    # (E, rows): a scan along the innermost dimension, which the card
+    # runs at memory speed (a scan along the outer one does not).
+    onehot = (experts[:, None] == flat[None, :]).to(torch.int32)
+    seen = onehot.cumsum(1, dtype=torch.int32)
+    rank = seen.gather(0, flat[None, :])[0].long() - 1
+    counts = seen[:, -1].long()
+    padded = (counts + bm - 1) // bm * bm
+    ends = padded.cumsum(0)
+    dest = (ends - padded)[flat] + rank
+    cap = -(-(rows + n_experts * (bm - 1)) // bm) * bm
+    row_slot = torch.full((cap,), rows, dtype=torch.int32, device=dev)
+    row_slot.scatter_(0, dest, torch.arange(rows, dtype=torch.int32,
+                                            device=dev))
+    block_expert = torch.searchsorted(
+        ends, torch.arange(0, cap, bm, device=dev), right=True)
+    return dest.view(ids.shape), row_slot, block_expert.to(torch.int32)
+
+
+def _check(x, ids, wts, w_gate, w_up, w_down) -> None:
+    e, d, f = w_gate.shape
+    if x.dim() != 2 or x.shape[1] != d:
+        raise ValueError(f"x {tuple(x.shape)} does not match the experts' "
+                         f"input width {d}")
+    if w_up.shape != (e, d, f) or w_down.shape != (e, f, d):
+        raise ValueError(f"expert weights {tuple(w_gate.shape)}/"
+                         f"{tuple(w_up.shape)}/{tuple(w_down.shape)} do not "
+                         "stack as (E, d, f), (E, d, f), (E, f, d)")
+    if ids.shape != wts.shape or ids.shape[0] != x.shape[0]:
+        raise ValueError(f"picks {tuple(ids.shape)} and weights "
+                         f"{tuple(wts.shape)} do not match x's rows")
+    if x.dtype != torch.bfloat16 or any(
+            w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
+        raise TypeError(f"grouped GEMM kernels take bfloat16, got {x.dtype} "
+                        f"and {w_gate.dtype}")
+    if d % 128 or f % 64:
+        raise ValueError(f"grouped GEMM kernels take a model width that is "
+                         f"a multiple of 128 and an expert width that is a "
+                         f"multiple of 64, got {d} and {f}")
+    for name, t in (("x", x), ("w_gate", w_gate), ("w_up", w_up),
+                    ("w_down", w_down)):
+        if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1])
+                or t.data_ptr() % 16):
+            raise ValueError(f"grouped GEMM kernels read {name} in 16-byte "
+                             f"vectors: its rows must be unit-stride, "
+                             f"16-byte aligned and 16-byte apart; got "
+                             f"strides {t.stride()}")
+
+
+def _launch(x, ids, wts, w_gate, w_up, w_down) -> torch.Tensor:
+    n, k = ids.shape
+    e, d, f = w_gate.shape
+    bm = block_rows(n * k, e)
+    dest, row_slot, block_expert = align(ids, e, bm)
+    cap = row_slot.numel()
+    row_w = torch.zeros(cap, dtype=torch.float32, device=x.device)
+    row_w.scatter_(0, dest.reshape(-1), wts.reshape(-1).float())
+    h = torch.empty((cap, f), dtype=x.dtype, device=x.device)
+    out = torch.empty((cap, d), dtype=x.dtype, device=x.device)
+    stream = _native.stream_handle(x.device)
+    _native.count("moe_gemm_up")
+    rc = _native.library("moe_gemm_up").moe_gemm_up(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(),
+        row_slot.data_ptr(), block_expert.data_ptr(), n * k, k, e, cap, d, f,
+        bm, x.stride(0), w_gate.stride(0), w_gate.stride(1), h.stride(0),
+        stream)
+    _native.check("moe_gemm_up", rc)
+    _native.count("moe_gemm_down")
+    rc = _native.library("moe_gemm_down").moe_gemm_down(
+        h.data_ptr(), w_down.data_ptr(), out.data_ptr(), row_w.data_ptr(),
+        block_expert.data_ptr(), e, cap, f, d, bm, h.stride(0),
+        w_down.stride(0), w_down.stride(1), out.stride(0), stream)
+    _native.check("moe_gemm_down", rc)
+    acc = out.index_select(0, dest[:, 0]).float()
+    for j in range(1, k):
+        acc += out.index_select(0, dest[:, j]).float()
+    return acc.to(x.dtype)
+
+
+def grouped_swiglu(x: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
+                   w_gate: torch.Tensor, w_up: torch.Tensor,
+                   w_down: torch.Tensor) -> torch.Tensor:
+    """``Σ_j wts[:, j] · SwiGLU_{ids[:, j]}(x)`` for x (N, d), the picks
+    ``ids`` (N, k) and their f32 weights ``wts`` (N, k), over the experts'
+    stacked weights w_gate, w_up (E, d, f) and w_down (E, f, d). Returns
+    (N, d) in x's dtype.
+
+    CUDA tensors: :func:`align` and the two CUDA kernels. CPU tensors:
+    :func:`grouped_swiglu_reference`."""
+    if _native.device_type(x, "grouped swiglu") == "cpu":
+        return grouped_swiglu_reference(x, ids, wts, w_gate, w_up, w_down)
+    _check(x, ids, wts, w_gate, w_up, w_down)
+    if x.shape[0] == 0:
+        return torch.zeros_like(x)
+    return _launch(x.contiguous(), ids, wts, w_gate, w_up, w_down)

@@ -118,7 +118,7 @@ def test_attention_reference_matches_jax(causal):
 def test_cpu_wrappers_launch_no_kernel():
     """On CPU tensors the wrappers take the plain versions, forward and
     backward, and count no launch; the counters are plain integers that
-    reset to zero, one per kernel of the six."""
+    reset to zero, one per kernel of the nine."""
     _native.reset_launches()
     x, w = torch.randn(3, 16), torch.rand(16)
     assert torch.equal(rmsnorm(x, w), rmsnorm_reference(x, w))
@@ -136,7 +136,9 @@ def test_cpu_wrappers_launch_no_kernel():
                        cached_attention_reference(q[:, :, :1], k, k, pos))
     assert _native.launches() == {"rmsnorm_fwd": 0, "flash_fwd": 0,
                                   "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
-                                  "flash_bwd_dkv": 0, "decode_attn": 0}
+                                  "flash_bwd_dkv": 0, "decode_attn": 0,
+                                  "mla_decode": 0, "moe_gemm_up": 0,
+                                  "moe_gemm_down": 0}
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 102),
