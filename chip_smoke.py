@@ -962,7 +962,8 @@ def phase_decode_attn() -> dict:
 
 # The latent-attention, routed-expert model's kernels (K7, G1), which no
 # Llama path launches.
-NOT_ON_LLAMA = {"mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0}
+NOT_ON_LLAMA = {"mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0,
+                "moe_gemm_many": 0}
 
 
 def mla_decode_case(b, t, pos, seed, timed) -> dict:
@@ -1011,10 +1012,12 @@ def grouped_gemm_case(n, seed, timed) -> dict:
     """G1 (``moe.grouped_swiglu``: ``align``, the two grouped GEMMs, the
     pick sum) against the per-expert loop at Moonlight's widths (64
     experts of 2048 → 1408, 6 a token) over ``n`` tokens: error, two calls
-    bitwise equal; timed, the call's device ms beside the two GEMMs'
-    bound (every expert's weights and the rows read once, the rows'
-    products: the larger of bytes and operations) and the plain loop's
-    wall ms."""
+    bitwise equal, the many-row instance's launches (two a call where
+    ``block_rows`` picks it, else none); timed, the call's device ms
+    beside the two GEMMs' bound (every expert's weights and the rows read
+    once, the rows' products: the larger of bytes and operations) and the
+    plain loop's wall ms, and each GEMM alone on ``align``'s layout beside
+    its own bound."""
     e, d, f, k = 64, 2048, 1408, 6
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
@@ -1027,15 +1030,21 @@ def grouped_gemm_case(n, seed, timed) -> dict:
            ).bfloat16(),
           (torch.randn(e, f, d, generator=g, device="cuda") / f ** 0.5
            ).bfloat16()]
+    many = _native.launches()["moe_gemm_many"]
     got = moe.grouped_swiglu(x, ids, wts, *ws)
     torch.cuda.synchronize()
-    want = moe.grouped_swiglu_reference(x, ids, wts, *ws)
+    many = _native.launches()["moe_gemm_many"] - many
+    bm = moe.block_rows(n * k, e)
     what = f"grouped swiglu {n} tokens"
+    require(many == (2 if bm == moe.MANY_ROWS else 0),
+            f"{what}: {many} launches of the many-row instance")
+    want = moe.grouped_swiglu_reference(x, ids, wts, *ws)
     res = {"shape": [n, k, e, d, f], "dtype": "bfloat16",
-           "block_rows": moe.block_rows(n * k, e),
+           "block_rows": bm,
            "max_abs_err": max_err(got, want, TOL[("decode", torch.bfloat16)][0],
                                   2 ** -8 * float(want.float().abs().max()),
                                   what)}
+    del want
     require(torch.equal(moe.grouped_swiglu(x, ids, wts, *ws), got),
             what + ": two calls differ")
     if timed:
@@ -1047,26 +1056,52 @@ def grouped_gemm_case(n, seed, timed) -> dict:
         sets = input_sets((x, ids, wts, *ws), out_bytes=x.numel() * 2)
         # The plain loop picks each expert's tokens with a host
         # synchronisation, so it cannot be captured: timed eagerly.
-        res.update(ms=time_ms(moe.grouped_swiglu, sets),
+        # A 65,536-token call allocates ~3.5 GB of its own: few in a graph.
+        res.update(ms=time_ms(moe.grouped_swiglu, sets,
+                              iters=24 if n <= 4096 else 4),
                    plain_ms=eager_ms(lambda: moe.grouped_swiglu_reference(
                        x, ids, wts, *ws), 2),
                    library_ms=None,
                    bound_ms=max(t_ops, t_bytes) * 1e3,
                    bound_by="operations" if t_ops > t_bytes else "bytes")
+        # Each GEMM alone (a graph of 24 launches; one set of inputs moves
+        # more than four times the L2 at either size).
+        dest, row_slot, block_expert = moe.align(ids, e, bm)
+        cap = row_slot.numel()
+        row_w = torch.zeros(cap, device="cuda")
+        row_w.scatter_(0, dest.reshape(-1), wts.reshape(-1).float())
+        h = torch.empty(cap, f, dtype=x.dtype, device="cuda")
+        out = torch.empty(cap, d, dtype=x.dtype, device="cuda")
+        up_ms = time_ms(lambda: moe.gemm_up(x, row_slot, block_expert, k,
+                                            ws[0], ws[1], h), [()])
+        down_ms = time_ms(lambda: moe.gemm_down(h, block_expert, row_w,
+                                                ws[2], out), [()])
+        up_bound = max(4.0 * rows * d * f / PEAK_OPS[torch.bfloat16],
+                       (2 * e * d * f + rows * d + rows * f) * 2
+                       / HBM_BYTES_PER_S) * 1e3
+        down_bound = max(2.0 * rows * d * f / PEAK_OPS[torch.bfloat16],
+                         (e * d * f + rows * f + rows * d) * 2
+                         / HBM_BYTES_PER_S) * 1e3
+        res.update(up_ms=up_ms, up_bound_ms=up_bound, down_ms=down_ms,
+                   down_bound_ms=down_bound, gemms_ms=up_ms + down_ms,
+                   gemms_bound_ms=up_bound + down_bound,
+                   gemms_share_of_bound=(up_bound + down_bound)
+                   / (up_ms + down_ms))
     return res
 
 
 def phase_mla_moe_kernels() -> dict:
     """K7 and G1 at the decode-mla cell's shapes: K7 over its 4224-long
     cache (B 64) at the mean and last positions, G1 over a decode step's
-    64 tokens (16-row blocks) and 4096 tokens (128-row blocks, as a
-    prefill chunk runs them); each also small. Launches: one K7 a call,
-    one of each GEMM a call."""
+    64 tokens (16-row blocks) and a prefill chunk's 65,536 (128-row
+    blocks, the many-row instance on TMA and wgmma); each also small.
+    Launches: one K7 a call, one of each GEMM a call."""
     _native.reset_launches()
     k7 = [mla_decode_case(64, 4224, 4033, 61, True),
           mla_decode_case(64, 4224, 4223, 62, True),
           mla_decode_case(3, 300, 150, 63, False)]
-    g1 = [grouped_gemm_case(64, 64, True), grouped_gemm_case(4096, 65, True),
+    g1 = [grouped_gemm_case(64, 64, True),
+          grouped_gemm_case(65536, 65, True),
           grouped_gemm_case(5, 66, False)]
     torch.cuda.synchronize()
     launches = _native.launches()
@@ -3901,9 +3936,13 @@ def main() -> int:
                            g1a["ms"], g1a["bound_ms"], g1a["bound_by"]),
             "replaces": "none: the JAX package has no experts",
             "note": "G1: ms, plain_ms and bound_ms are of the whole grouped "
-                    "SwiGLU (align, both GEMMs, the pick sum)",
+                    "SwiGLU (align, both GEMMs, the pick sum); many_rows "
+                    "times each GEMM alone over a 65,536-token chunk",
             "cells": [{key: c[key] for key in cell_keys + ("block_rows",)}
-                      for c in k7g1["g1"][:2]]})
+                      for c in k7g1["g1"][:2]],
+            "many_rows": {key: k7g1["g1"][1][key] for key in (
+                "up_ms", "up_bound_ms", "down_ms", "down_bound_ms",
+                "gemms_ms", "gemms_bound_ms", "gemms_share_of_bound")}})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-// The expert layer's grouped GEMM for Hopper (sm_90a), shared by
-// moe_gemm_up.cu (gate and up, silu(gate) * up out) and moe_gemm_down.cu
-// (down, each row scaled by its routing weight).
+// The expert layer's grouped GEMM for Hopper (sm_90a), its few-row
+// instance, shared by moe_gemm_up.cu (gate and up, silu(gate) * up out)
+// and moe_gemm_down.cu (down, each row scaled by its routing weight); the
+// many-row instance of a prefill chunk is moe_gemm_tc.cuh's.
 //
 // Replaces no Pallas kernel: the JAX package has no experts. The rows are
 // the picks laid out by expert (ops/moe.py:align): each expert's rows
@@ -10,17 +11,10 @@
 // ops/moe.py:grouped_swiglu_reference.
 //
 // Bound on H100: in a decode step (64 tokens, 6 picks, ~6 rows an expert)
-// bytes, every expert's weights read once; in a prefill chunk (~6,000
-// rows an expert) operations. Two instances of one design:
-//   - few rows (BM 16): one block of rows an expert, 4 warps side by side
-//     along the columns, 64-deep tiles, 4 stages: each expert's weights
-//     stream through shared memory once, with ~3 tiles in flight a block;
-//   - many rows (BM 128): 128 x 128 output tiles (gate and up: 64 columns
-//     of each), 4 warps as 2 x 2 (each 64 rows by 32 columns of gate and
-//     of up, or 64 by 64 of down), 64-deep tiles, 3 stages (~110 KB of
-//     shared memory, two blocks an SM). On an H100 at 700 W this ran G1
-//     at 189 TFLOP/s over 65,536 tokens, against 166 for 8 warps of half
-//     the rows over 32-deep tiles in 4 stages.
+// bytes, every expert's weights read once. The few-row instance (BM 16):
+// one block of rows an expert, 4 warps side by side along the columns,
+// 64-deep tiles, 4 stages, so each expert's weights stream through shared
+// memory once, with ~3 tiles in flight a block.
 // Tiles travel by cp.async into shared rows padded by 16 bytes (ldmatrix
 // reads them without bank conflicts); the products are mma.sync m16n8k16
 // (bf16 in, f32 sums), A by ldmatrix, B (stored K-major rows, N
@@ -29,8 +23,8 @@
 //
 // Contract (checked by the wrapper, ops/moe.py): bf16 operands, unit
 // stride along the last dimension, row strides multiples of 8 elements,
-// bases 16-byte aligned; K a multiple of 64 and N of 128 (of 64 for the
-// gated kernel), so no tile has a tail.
+// bases 16-byte aligned; K a multiple of 64 and N of 64, so no tile has a
+// tail.
 
 #pragma once
 

@@ -23,7 +23,8 @@ without ``nvcc`` fails only when a kernel is first launched.
 ``mla_decode`` (K7, the latent-attention decode step's) each launch two
 device functions when they split the keys, and count as one launch.
 ``moe_gemm_up`` and ``moe_gemm_down`` (G1, the expert layer's grouped
-GEMMs, ``ops/moe.py``) share the header ``csrc/moe_gemm.cuh``.
+GEMMs, ``ops/moe.py``) share the headers ``csrc/moe_gemm.cuh`` (their
+few-row instance) and ``csrc/moe_gemm_tc.cuh`` (their many-row one).
 
 Route queries: the three attention kernels, ``flash_fwd`` (K3),
 ``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
@@ -34,7 +35,10 @@ dtype)``, the instance the entry launches, from the same dispatch code
 
 Launch counters: each wrapper calls :func:`count` once where it launches
 its kernel and nowhere else, so a run can show which kernels its path
-went through (:func:`launches`, :func:`reset_launches`). A CUDA graph
+went through (:func:`launches`, :func:`reset_launches`). One more counter
+names an instance rather than a kernel: ``moe_gemm_many`` counts each
+launch of G1's many-row instance (up and down one each), so a run shows
+that a prefill took it and a decode step did not. A CUDA graph
 launches its kernels without calling the wrappers: a capture launches
 nothing, so what its thread counts while it records goes into a tally of
 its own (:func:`tally_launches`), and
@@ -97,9 +101,14 @@ KERNELS = tuple(SIGNATURES)
 DECODE_ATTN_FUNCTIONS = ("decode_attn_split", "decode_attn_combine")
 # K7's device functions, named apart from K1-K6's in the same way.
 MLA_DECODE_FUNCTIONS = ("mla_decode_split", "mla_decode_combine")
-# G1's device functions (templates, one instance for few rows a block and
-# one for many), named apart from K1-K7's in the same way.
+# G1's device functions (a template instance for few rows a block, and a
+# kernel for many), named apart from K1-K7's in the same way.
 MOE_GEMM_FUNCTIONS = ("moe_gemm_up_kernel", "moe_gemm_down_kernel")
+MOE_GEMM_MANY_FUNCTIONS = ("moe_gemm_up_tc_kernel",
+                           "moe_gemm_down_tc_kernel")
+# Launch counters: one a kernel, and the launches of G1's many-row
+# instance.
+COUNTERS = KERNELS + ("moe_gemm_many",)
 # Kernels with more than one instance, and the C function that names the
 # one their entry launches for (D, dtype).
 ROUTES = {"flash_fwd": "flash_fwd_route",
@@ -109,7 +118,7 @@ ROUTE_NAMES = {1: "tensor_core", 0: "scalar"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_launches: Dict[str, int] = {name: 0 for name in KERNELS}
+_launches: Dict[str, int] = {name: 0 for name in COUNTERS}
 # This thread's open tally (tally_launches), if any.
 _local = threading.local()
 
@@ -275,7 +284,8 @@ def tally_launches() -> Iterator[Dict[str, int]]:
 
 
 def launches() -> Dict[str, int]:
-    """Launches of each kernel since the last :func:`reset_launches`."""
+    """Launches of each kernel (and of G1's many-row instance) since the
+    last :func:`reset_launches`."""
     return dict(_launches)
 
 

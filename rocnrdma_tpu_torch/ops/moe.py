@@ -25,8 +25,9 @@ as a CUDA graph):
 
 Bound on H100: in a decode step (64 tokens, 6 picks, ~6 rows an expert)
 bytes, every expert's weights read once; in a prefill chunk (~6,000 rows
-an expert) operations. ``csrc/moe_gemm.cuh`` says how the two instances
-of its design (16 rows a block and 128) meet each.
+an expert) operations. Two instances meet each: 16 rows a block on
+mma.sync (``csrc/moe_gemm.cuh``) and 128 rows a block on TMA and wgmma,
+persistent and warp-specialised (``csrc/moe_gemm_tc.cuh``).
 
 :func:`grouped_swiglu` dispatches on the device: CUDA tensors launch the
 kernels, CPU tensors run :func:`grouped_swiglu_reference`, a plain loop
@@ -44,7 +45,7 @@ import torch.nn.functional as F
 from . import _native
 
 __all__ = ["route", "align", "grouped_swiglu", "grouped_swiglu_reference",
-           "block_rows"]
+           "block_rows", "gemm_up", "gemm_down"]
 
 
 def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
@@ -88,9 +89,13 @@ def grouped_swiglu_reference(x: torch.Tensor, ids: torch.Tensor,
 
 # Rows a block of the kernels holds, for few rows an expert (a decode
 # step: each expert's weights read by one block of rows) and for many (a
-# prefill chunk: 128 x 128 tensor-core tiles). The tiles themselves are
-# the CUDA sources' (``Few``, ``Many``).
+# prefill chunk: 128 x 256 wgmma tiles). The tiles themselves are the CUDA
+# sources' (``Few``; ``moe_gemm_tc.cuh``'s ``kBM``, ``kBN``).
 FEW_ROWS, MANY_ROWS = 16, 128
+# The widths the kernels take: the model width d a multiple of 256 (the
+# many-row down kernel's 256 columns), the expert width f of 128 (its up
+# kernel's 128 gate and 128 up columns).
+D_MULTIPLE, F_MULTIPLE = 256, 128
 
 
 def block_rows(rows: int, n_experts: int) -> int:
@@ -145,10 +150,11 @@ def _check(x, ids, wts, w_gate, w_up, w_down) -> None:
             w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
         raise TypeError(f"grouped GEMM kernels take bfloat16, got {x.dtype} "
                         f"and {w_gate.dtype}")
-    if d % 128 or f % 64:
+    if d % D_MULTIPLE or f % F_MULTIPLE:
         raise ValueError(f"grouped GEMM kernels take a model width that is "
-                         f"a multiple of 128 and an expert width that is a "
-                         f"multiple of 64, got {d} and {f}")
+                         f"a multiple of {D_MULTIPLE} and an expert width "
+                         f"that is a multiple of {F_MULTIPLE}, got {d} and "
+                         f"{f}")
     for name, t in (("x", x), ("w_gate", w_gate), ("w_up", w_up),
                     ("w_down", w_down)):
         if (t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1])
@@ -159,30 +165,54 @@ def _check(x, ids, wts, w_gate, w_up, w_down) -> None:
                              f"strides {t.stride()}")
 
 
+def gemm_up(x, row_slot, block_expert, top_k, w_gate, w_up, h) -> None:
+    """The gate and up GEMM over :func:`align`'s layout into ``h`` (cap,
+    f): ``silu(x[tok] · w_gate[e]) · (x[tok] · w_up[e])`` for each padded
+    row, zeros for a padding row. One launch of ``moe_gemm_up``, and of
+    the many-row instance where ``h``'s rows are laid out in its blocks."""
+    e, d, f = w_gate.shape
+    cap = row_slot.numel()
+    bm = cap // block_expert.numel()
+    _native.count("moe_gemm_up")
+    if bm == MANY_ROWS:
+        _native.count("moe_gemm_many")
+    rc = _native.library("moe_gemm_up").moe_gemm_up(
+        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(),
+        row_slot.data_ptr(), block_expert.data_ptr(), x.shape[0] * top_k,
+        top_k, e, cap, d, f, bm, x.stride(0), w_gate.stride(0),
+        w_gate.stride(1), h.stride(0), _native.stream_handle(x.device))
+    _native.check("moe_gemm_up", rc)
+
+
+def gemm_down(h, block_expert, row_w, w_down, out) -> None:
+    """The down GEMM into ``out`` (cap, d): ``row_w[r] · (h[r] ·
+    w_down[e])`` for each padded row. One launch of ``moe_gemm_down``, and
+    of the many-row instance where the rows are laid out in its blocks."""
+    e, f, d = w_down.shape
+    cap = h.shape[0]
+    bm = cap // block_expert.numel()
+    _native.count("moe_gemm_down")
+    if bm == MANY_ROWS:
+        _native.count("moe_gemm_many")
+    rc = _native.library("moe_gemm_down").moe_gemm_down(
+        h.data_ptr(), w_down.data_ptr(), out.data_ptr(), row_w.data_ptr(),
+        block_expert.data_ptr(), e, cap, f, d, bm, h.stride(0),
+        w_down.stride(0), w_down.stride(1), out.stride(0),
+        _native.stream_handle(h.device))
+    _native.check("moe_gemm_down", rc)
+
+
 def _launch(x, ids, wts, w_gate, w_up, w_down) -> torch.Tensor:
     n, k = ids.shape
     e, d, f = w_gate.shape
-    bm = block_rows(n * k, e)
-    dest, row_slot, block_expert = align(ids, e, bm)
+    dest, row_slot, block_expert = align(ids, e, block_rows(n * k, e))
     cap = row_slot.numel()
     row_w = torch.zeros(cap, dtype=torch.float32, device=x.device)
     row_w.scatter_(0, dest.reshape(-1), wts.reshape(-1).float())
     h = torch.empty((cap, f), dtype=x.dtype, device=x.device)
     out = torch.empty((cap, d), dtype=x.dtype, device=x.device)
-    stream = _native.stream_handle(x.device)
-    _native.count("moe_gemm_up")
-    rc = _native.library("moe_gemm_up").moe_gemm_up(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), h.data_ptr(),
-        row_slot.data_ptr(), block_expert.data_ptr(), n * k, k, e, cap, d, f,
-        bm, x.stride(0), w_gate.stride(0), w_gate.stride(1), h.stride(0),
-        stream)
-    _native.check("moe_gemm_up", rc)
-    _native.count("moe_gemm_down")
-    rc = _native.library("moe_gemm_down").moe_gemm_down(
-        h.data_ptr(), w_down.data_ptr(), out.data_ptr(), row_w.data_ptr(),
-        block_expert.data_ptr(), e, cap, f, d, bm, h.stride(0),
-        w_down.stride(0), w_down.stride(1), out.stride(0), stream)
-    _native.check("moe_gemm_down", rc)
+    gemm_up(x, row_slot, block_expert, k, w_gate, w_up, h)
+    gemm_down(h, block_expert, row_w, w_down, out)
     acc = out.index_select(0, dest[:, 0]).float()
     for j in range(1, k):
         acc += out.index_select(0, dest[:, j]).float()

@@ -311,31 +311,45 @@ def test_registry_lists_k7_and_the_grouped_gemms():
         "moe_gemm_up", [P] * 6 + [I] * 7 + [L] * 4 + [P])
     assert _native.SIGNATURES["moe_gemm_down"] == (
         "moe_gemm_down", [P] * 5 + [I] * 5 + [L] * 4 + [P])
-    for name in ("mla_decode", "moe_gemm_up", "moe_gemm_down"):
+    for name in ("mla_decode", "moe_gemm_up", "moe_gemm_down",
+                 "moe_gemm_many"):
         assert name in _native.launches()
     src = (_native.CSRC / "mla_decode.cu").read_text()
     assert f"constexpr int kMinBlocks = {mld.BLOCKS_PER_SM};" in src
     assert f"constexpr int kKeys = {mld.KEYS_PER_TILE};" in src
     for fn in _native.MLA_DECODE_FUNCTIONS:
         assert f" {fn}(" in src or f"\n{fn}(" in src
-    # The Few and Many instances hold the rows that block_rows picks.
+    # The Few and Many instances hold the rows that block_rows picks, and
+    # the many-row tiles the widths that _check asks for.
     header = (_native.CSRC / "moe_gemm.cuh").read_text()
     assert "template <int BM_, int BN_, int BK_" in header
-    for name, fn in zip(("moe_gemm_up", "moe_gemm_down"),
-                        _native.MOE_GEMM_FUNCTIONS):
+    tc = (_native.CSRC / "moe_gemm_tc.cuh").read_text()
+    assert (f"constexpr int kBM = {moe.MANY_ROWS}, "
+            f"kBN = {moe.D_MULTIPLE}, kBK = 64," in tc)
+    assert moe.F_MULTIPLE == moe.D_MULTIPLE // 2  # up: gate + up columns
+    for name, fn, many in zip(("moe_gemm_up", "moe_gemm_down"),
+                              _native.MOE_GEMM_FUNCTIONS,
+                              _native.MOE_GEMM_MANY_FUNCTIONS):
         src = (_native.CSRC / f"{name}.cu").read_text()
         assert '#include "moe_gemm.cuh"' in src
+        assert '#include "moe_gemm_tc.cuh"' in src
         assert f"\n{fn}(" in src
+        assert f"\n{many}(" in src
         assert f"using Few = moe::Tile<{moe.FEW_ROWS}, " in src
-        assert f"using Many = moe::Tile<{moe.MANY_ROWS}, " in src
-    from benchmark import roofline
+        assert "if (bm == moe_tc::kBM)" in src
+        assert "moe::Tile<128" not in src
+    from benchmark import roofline, roofline_mla
 
-    for name in _native.MLA_DECODE_FUNCTIONS + _native.MOE_GEMM_FUNCTIONS:
+    for name in (_native.MLA_DECODE_FUNCTIONS + _native.MOE_GEMM_FUNCTIONS
+                 + _native.MOE_GEMM_MANY_FUNCTIONS):
         assert roofline.kernel_of(name) is None
+    for name in _native.MOE_GEMM_FUNCTIONS + _native.MOE_GEMM_MANY_FUNCTIONS:
+        assert roofline_mla.MOE_GEMM in name
 
 
 @pytest.mark.parametrize("rows,want", [(64 * 6, 16), (32 * 64, 16),
-                                       (32 * 64 + 1, 128), (4096 * 6, 128)])
+                                       (32 * 64 + 1, 128), (4096 * 6, 128),
+                                       (65536 * 6, 128)])
 def test_block_rows_follow_the_rows_an_expert(rows, want):
     assert moe.block_rows(rows, 64) == want
 
@@ -348,11 +362,23 @@ def test_grouped_gemm_checks_refuse_what_the_kernels_do_not_take():
           torch.zeros(8, 256, 128, dtype=torch.bfloat16),
           torch.zeros(8, 128, 256, dtype=torch.bfloat16))
     moe._check(x, ids, wts, *ws)
-    narrow = (torch.zeros(8, 192, 128, dtype=torch.bfloat16),
-              torch.zeros(8, 192, 128, dtype=torch.bfloat16),
-              torch.zeros(8, 128, 192, dtype=torch.bfloat16))
+    # Moonlight's widths: d 2048, f 1408 (11 x 128).
+    moonlight = (torch.zeros(1, 2048, 1408, dtype=torch.bfloat16),
+                 torch.zeros(1, 2048, 1408, dtype=torch.bfloat16),
+                 torch.zeros(1, 1408, 2048, dtype=torch.bfloat16))
+    moe._check(torch.zeros(4, 2048, dtype=torch.bfloat16), ids, wts,
+               *moonlight)
+
+    def widths(d, f):
+        return (torch.zeros(4, d, dtype=torch.bfloat16), ids, wts,
+                torch.zeros(8, d, f, dtype=torch.bfloat16),
+                torch.zeros(8, d, f, dtype=torch.bfloat16),
+                torch.zeros(8, f, d, dtype=torch.bfloat16))
+
     for bad in ((x.float(), ids, wts, *(w.float() for w in ws)),
-                (x[:, :192], ids, wts, *narrow),
+                widths(192, 128),
+                # the many-row tiles: d a multiple of 256, f of 128
+                widths(384, 128), widths(256, 192), widths(2048, 1344),
                 (x, ids[:, :1], wts, *ws),
                 (x, ids, wts, ws[0], ws[1], ws[0])):
         with pytest.raises((ValueError, TypeError)):
@@ -449,19 +475,52 @@ def test_k7_split_counts_agree_and_never_read_past_pos(cuda, case):
         assert torch.equal(mld._launch(q, ckv, q_pos, scale, s), got)
 
 
+G1_CASES = {
+    # tokens, picks skewed: the decode step's 64 tokens (16-row blocks);
+    # prefill chunks (128-row blocks), the decode-mla cell's of 65,536
+    # tokens among them; and skewed picks: one expert with no rows, one
+    # with a single row, one picked by a quarter of the tokens, over an
+    # odd number of 128-row blocks (251).
+    "decode_64": (64, False),
+    "chunk_4096": (4096, False),
+    "chunk_65536": (65536, False),
+    "skewed_4000": (4000, True),
+}
+
+
+def _skewed_picks(n, e, k, g, device):
+    """Distinct picks a token among experts 3..e-1, then expert 2 for the
+    first quarter of the tokens and expert 1 for one more: expert 0
+    takes no row, expert 1 one."""
+    ids = torch.rand(n, e - 3, generator=g, device=device).argsort(1)[:, :k]
+    ids += 3
+    ids[: n // 4, 0] = 2
+    ids[n // 4, 1] = 1
+    wts = torch.rand(n, k, generator=g, device=device) + 0.1
+    return ids, wts / wts.sum(1, keepdim=True) * 2.446
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", [64, 4096])
-def test_grouped_gemms_match_the_per_expert_loop(cuda, n):
-    """The decode step's 64 tokens (16-row blocks) and a prefill chunk's
-    many (128-row blocks), at Moonlight's widths, against the plain loop
-    with the same roundings: the GEMMs' sums differ in order only (bf16
-    products, f32 sums), so the outputs agree to a bf16 step."""
+@pytest.mark.parametrize("case", list(G1_CASES))
+def test_grouped_gemms_match_the_per_expert_loop(cuda, case):
+    """The grouped GEMMs at Moonlight's widths against the plain loop with
+    the same roundings: the GEMMs' sums differ in order only (bf16
+    products, f32 sums), so the outputs agree to a bf16 step; two calls
+    give the same bits; the many-row instance counts one launch a GEMM
+    where block_rows picks it, and none in a decode step."""
+    n, skewed = G1_CASES[case]
     e, d, f, k = 64, 2048, 1408, 6
-    g = torch.Generator(device=cuda).manual_seed(n)
+    g = torch.Generator(device=cuda).manual_seed(n + skewed)
     x = torch.randn(n, d, generator=g, device=cuda).bfloat16()
-    router = (torch.randn(d, e, generator=g, device=cuda) / d ** 0.5
-              ).bfloat16()
-    ids, wts = moe.route(x, router, torch.zeros(e, device=cuda), k, 2.446)
+    if skewed:
+        ids, wts = _skewed_picks(n, e, k, g, cuda)
+        counts = torch.bincount(ids.reshape(-1), minlength=e)
+        assert counts[0] == 0 and counts[1] == 1 and counts[2] == n // 4
+    else:
+        router = (torch.randn(d, e, generator=g, device=cuda) / d ** 0.5
+                  ).bfloat16()
+        ids, wts = moe.route(x, router, torch.zeros(e, device=cuda), k,
+                             2.446)
     ws = [(torch.randn(e, d, f, generator=g, device=cuda) / d ** 0.5
            ).bfloat16(),
           (torch.randn(e, d, f, generator=g, device=cuda) / d ** 0.5
@@ -472,8 +531,12 @@ def test_grouped_gemms_match_the_per_expert_loop(cuda, n):
     got = moe.grouped_swiglu(x, ids, wts, *ws)
     again = moe.grouped_swiglu(x, ids, wts, *ws)
     torch.cuda.synchronize()
-    assert _native.launches()["moe_gemm_up"] == 2
-    assert _native.launches()["moe_gemm_down"] == 2
+    launches = _native.launches()
+    assert launches["moe_gemm_up"] == 2
+    assert launches["moe_gemm_down"] == 2
+    many = moe.block_rows(n * k, e) == moe.MANY_ROWS
+    assert many == (n > 64)
+    assert launches["moe_gemm_many"] == (4 if many else 0)
     assert torch.equal(got, again)
     want = moe.grouped_swiglu_reference(x, ids, wts, *ws)
     scale = float(want.float().abs().max())
