@@ -10,27 +10,31 @@ ragged, f32/bf16, causal/full variants), shows each backward kernel, K6
 benchmark cells' decode shapes), K7 (``mla_decode``, the latent-attention
 decode step's) and G1 (``moe_gemm_up`` and ``moe_gemm_down``, the expert
 layer's grouped GEMMs), both at the decode-mla cell's shapes, bitwise
-deterministic across two calls, times each, then drives the
-serving and training paths through the entry points a user calls. K3
-(``flash_fwd``), K4 (``flash_bwd_dkv``) and K5 (``flash_bwd_dq``) have
-two instances each, a tensor-core one (bf16 at D 64 and 128) and a
-scalar one (f32, bf16 at D 16 and 32): every case of theirs prints the
-``route`` the library chose, both routes are held against the plain
-versions, and the cases at the shapes of paths (a) and (c) must report
-the tensor-core route. K1 is also captured in a CUDA graph at (a)'s
-decode shape and (b) jit's layer shape, replayed on fresh inputs and
-held against its plain version, one launch a replay.
+deterministic across two calls, times each at the shapes of the
+``kernels`` line, then drives the serving and training paths through the
+entry points a user calls. K3 (``flash_fwd``), K4 (``flash_bwd_dkv``)
+and K5 (``flash_bwd_dq``) have two instances each, a tensor-core one
+(bf16 at D 64 and 128) and a scalar one (f32, bf16 at D 16 and 32):
+every case of theirs prints the ``route`` the library chose, both routes
+are held against the plain versions, and the cases at the shapes of
+paths (a) and (c) must report the tensor-core route. K1 is also
+captured in a CUDA graph at (a)'s decode shape and (b) jit's layer
+shape, replayed on fresh inputs and held against its plain version, one
+launch a replay.
+
+The paths are gates, not measurements: the benchmark (``BENCHMARK.json``,
+``benchmark/``) measures the port, and its yardstick
+(``benchmark/roofline.py``, ``benchmark/roofline_mla.py``) gives the
+kernels' bounds here.
 
 - path (a): ``generate`` at llama3-8b (all 32 layers, bf16, random
   weights from ``init_params(seed=0)``), batch 4, prompt 512, 32 new
   tokens, its prefill eager (K3) and its decode steps replays of one
-  captured CUDA graph — prefill ms, decode tok/s graphed and with the
-  same step uncaptured, the capture seconds, peak memory, launch counts
-  through the replays, tokens against the uncaptured step (bitwise, else
-  the near-tie rule, reported), a second call capturing nothing, and
-  after ``load_state_dict(assign=True)`` with other weights a new
-  capture whose tokens follow them; the decode step's wall, device busy
-  time and idle share, graphed and uncaptured;
+  captured CUDA graph: launch counts through the replays, peak memory,
+  tokens against the uncaptured step (bitwise, else the near-tie rule,
+  reported), a second call capturing nothing, and after
+  ``load_state_dict(assign=True)`` with other weights a new capture
+  whose tokens follow them;
 - parity: llama3-1b in f32, full-forward logits of a 128-token prompt
   on the card (kernels) against the same model on the CPU (plain
   versions);
@@ -40,31 +44,27 @@ held against its plain version, one launch a replay.
   weights; then (b)'s script on ``ContinuousBatcher(..., jit_decode=
   True)`` (each decode layer step replayed from a graph over pooled
   caches): tokens (b)'s by the near-tie rule, launches (b)'s, at most 4
-  slots x 16 layers graphs, wall, token latency and the pool's bytes;
+  slots x 16 layers graphs, the pool's bytes;
 - the HF import: (b)'s weights laid out as an HF ``LlamaForCausalLM``
   checkpoint (HF's names, projections (out, in), a config with HF's
   field names) and brought back by ``config_from_hf`` and
   ``from_hf_state_dict``: every tensor bitwise the original, the
   geometry llama3-1b's, and a tied checkpoint's head the embedding's
-  transpose; the conversion seconds;
+  transpose;
 - path (h): two rank processes, each rebuilding (b)'s weights, taking
   them through the HF import and serving (b)'s request script on a
   world-2 ``ContinuousBatcher`` over the emu ring (weights sharded and
   gathered a page at a time with prefetch, each joining request's KV
   pages broadcast from its home rank): tokens equal on both ranks and
   to (b)'s, launches and gathered and broadcast bytes per rank as the
-  shapes say, the link tier; step ms, token latency, the host time in
-  the prefetch's window fill, the upload, the compute, the page wait
-  and the KV joins, the prefetch-overlap fraction;
+  shapes say, the link tier, the prefetch-overlap fraction;
 - path (c): ``Trainer("llama3-1b", remat=True)`` in bf16, all 16
   layers, batch 2, seq 2048 (the shape of
-  ``examples/train_single_chip.py``), one warm step then 4 timed steps
-  on one batch — step ms, tokens/s, model-FLOP share of the bf16 peak,
-  device busy vs wall, peak memory, losses, launch counts; then the
-  same under ``remat_policy="dots"`` (the projections' outputs kept,
-  the rest recomputed): each step's loss equal to (c)'s, K1-K5 launches
-  per step (c)'s, the GEMM launches and device time per step, peak
-  memory;
+  ``examples/train_single_chip.py``), one warm step then 4 on one batch:
+  launch counts, finite and falling losses, peak memory; then the same
+  under ``remat_policy="dots"`` (the projections' outputs kept, the rest
+  recomputed): each step's loss equal to (c)'s, K1-K5 launches per step
+  (c)'s, peak memory;
 - training parity: llama3-1b in f32, batch 1, seq 200, loss and every
   parameter's gradient on the card (kernels) against the CPU (plain
   versions), then the parameters after one AdamW step; the card step's
@@ -81,25 +81,17 @@ held against its plain version, one launch a replay.
   int8 wires on the f32 leaves (within tolerance, the warm call's
   widened by the residuals it carries in; the bf16 wire bitwise the
   mean of what the ranks sent; both ranks bitwise equal) — with each
-  mode's cold and warm gather / ring / scatter ms;
-- the ring by message size: the port's ``tools/allreduce.py`` at world
-  2 in bf16, 4 MiB, 64 MiB and 1 GiB, as two rank processes and as two
-  threads of one process, each with its link tier, and the 64 MiB case
-  across processes once more with the flight recorder on;
-- the perftest: the port's ``tools/perf.py`` (``ib_write_bw`` /
-  ``ib_read_bw``'s analogue) on the emu engine, RDMA WRITE and READ from
-  4 KiB to 1 GiB, in one process and across two (the CMA link of the
-  two-process paths): GB/s by size;
+  mode's staged bytes;
 - path (d): ``examples/two_slice_dp_torch.py`` as two rank processes on
   the card, llama3-1b bf16 with remat, batch 2 x seq 2048 per rank, the
   gradients averaged over the emu ring each step: losses, equal
   parameter digests on both ranks after every step, launches per step
-  equal to path (c)'s, staged bytes, the grads / sync / apply split;
+  equal to path (c)'s, staged bytes;
 - path (e): path (d)'s command with ``--per-layer`` and
   ``TDR_TELEMETRY=1``: each layer's gradients pushed from the backward
   by post-accumulate-grad hooks; path (d)'s gates, parameter digests
-  equal to path (d)'s after every step, the overlap fractions, the
-  recorder's dropped count and the ring's time split by native event;
+  equal to path (d)'s after every step, the overlap fractions and the
+  recorder's dropped count;
 - path (f): path (d)'s two ranks under the port's coordinator (started
   as a process) with ``--elastic-dir`` (a checkpoint every step); rank 1
   SIGKILLs itself in its 2nd sync call and is started again, restores
@@ -109,9 +101,7 @@ held against its plain version, one launch a replay.
   postmortem bundle and the port's ``tdr_explain --postmortem`` readout
   of its incident directory (the world, the bundle's generation, every
   rank bundle listed), launches per attempt equal to path (c)'s per step,
-  and the checkpoint bytes, save and restore ms, detection, rebuild and
-  rejoin times, the clean steps' ms against (d)'s and the finite check's
-  ms;
+  and the checkpoint bytes;
 - sequence-parallel parity: llama3-1b f32, a global sequence of 1024
   split over two rank processes, one SGD step in each mode (ring
   attention, Ulysses): the global loss and every synced gradient against
@@ -119,15 +109,14 @@ held against its plain version, one launch a replay.
   on both ranks, each rank's launches as the model says;
 - path (g): ``examples/seq_parallel_train_torch.py`` as two rank
   processes, llama3-1b bf16 with remat at its longest context (batch 1,
-  8192 tokens, 4096 a rank), ring then Ulysses, one warm step and 1 timed
-  on one batch: equal digests on both ranks after every step, the first
-  losses of both modes and of the single-device model within 2e-2,
-  launches and the attention's wire and staged bytes per rank per step
-  as the model and the shapes say; step ms, tokens/s, the grads / sync /
-  apply split, the attention's transport time per rank, peak memory.
-  The attention kernel phases hold K3, K4 and K5 at (g)'s shapes too:
-  the ring's full past shard (K4/K5 driven by an lse merged with another
-  shard's) and causal diagonal at S 4096, Ulysses' causal S 8192.
+  8192 tokens, 4096 a rank), ring then Ulysses, two steps on one batch:
+  equal digests on both ranks after every step, the first losses of
+  both modes and of the single-device model within 2e-2, launches and
+  the attention's wire and staged bytes per rank per step as the model
+  and the shapes say, peak memory. The attention kernel phases hold K3,
+  K4 and K5 at (g)'s shapes too: the ring's full past shard (K4/K5
+  driven by an lse merged with another shard's) and causal diagonal at
+  S 4096, Ulysses' causal S 8192.
 - path (i): the intra-slice dp x tp mesh, its positions sharing the one
   card (``devices=["cuda:0"] * n``). f32 parity: llama3-1b, batch 2 x
   seq 200, one step of ``Trainer(cfg, {"dp": 2, "tp": 2}, devices=...)``
@@ -135,32 +124,28 @@ held against its plain version, one launch a replay.
   1e-4 relative, every gradient 1e-3 of its largest element, the
   parameters after the AdamW step by the training-parity rule), no two
   positions' parameters sharing storage, both steps' launches as the
-  model says. bf16: path (c)'s model, batch
-  and weights on dp 2 x tp 2 with remat, one warm step then 3 timed:
-  the first loss within 2e-2 relative of (c)'s, launches per step 4 x
-  (c)'s, K3/K4/K5 on the tensor-core route at the positions' local shape
-  (B1 H8 KVH4 S2048 D128); step ms, tokens/s, peak memory, the idle
-  share and the device time of the cross-position sums and gathers
-  (the ``mesh.*`` ranges) against the rest. Two slices:
-  ``examples/two_slice_dp_torch.py --mesh dp=1,tp=2 --devices
-  cuda:0,cuda:0`` as path (d)'s two rank processes (one warm step, 1
-  timed): digests equal on both ranks every step, (d)'s staged bytes,
-  launches 2 x (c)'s, first losses within 2e-2 relative of (d)'s; the
-  grads / sync / apply split. Then those two slices with
-  ``--per-layer`` and ``--elastic-dir`` under the coordinator, run as
-  path (f) runs, 2 steps, rank 1 SIGKILLed at its first bucket push of
-  step 2 and started again: digests after every step equal to the
-  fused two slices', one recovery, launches per attempt two positions'
-  of (c)'s, the checkpoint file the size of (f)'s (the meshed file is
-  the single-device one); rebuild, restore and save ms, rank 1's start
-  to rejoin. The elastic paths write every thread's stack every 30 s
-  of a resume into the phase's line. The kernel phases time K3, K4 and K5 at
-  (i)'s local shape, K3's scalar f32 route at (b)'s and (h)'s shortest
-  and longest prompts (S 85 and 225), and K4's and K5's scalar f32
-  routes at the training parity's shape (B1 H16 KVH8 S200, causal), the
-  sequence-parallel parity's past shard (S 512, full, merged lse) and
-  S 2048; the build fails unless K3, K4 and K5 each have their six
-  scalar instances with no spill.
+  model says. bf16: path (c)'s model, batch and weights on dp 2 x tp 2
+  with remat, one warm step then 3: the first loss within 2e-2 relative
+  of (c)'s, launches per step 4 x (c)'s, K3/K4/K5 on the tensor-core
+  route at the positions' local shape (B1 H8 KVH4 S2048 D128), peak
+  memory. Two slices: ``examples/two_slice_dp_torch.py --mesh dp=1,tp=2
+  --devices cuda:0,cuda:0`` as path (d)'s two rank processes (2
+  steps): digests equal on both ranks every step, (d)'s staged bytes,
+  launches 2 x (c)'s, first losses within 2e-2 relative of (d)'s. Then
+  those two slices with ``--per-layer`` and ``--elastic-dir`` under the
+  coordinator, run as path (f) runs, 2 steps, rank 1 SIGKILLed at its
+  first bucket push of step 2 and started again: digests after every
+  step equal to the fused two slices', one recovery, launches per
+  attempt two positions' of (c)'s, the checkpoint file the size of
+  (f)'s (the meshed file is the single-device one). The elastic paths
+  write every thread's stack every 30 s of a resume into the phase's
+  line. The kernel phases hold K3, K4 and K5 at (i)'s local shape, K3's
+  scalar f32 route at (b)'s and (h)'s shortest and longest prompts (S
+  85 and 225), and K4's and K5's scalar f32 routes at the training
+  parity's shape (B1 H16 KVH8 S200, causal), the sequence-parallel
+  parity's past shard (S 512, full, merged lse) and S 2048; the build
+  fails unless K3, K4 and K5 each have their six scalar instances with
+  no spill.
 - the elastic soak: ``tools/torch_fault_soak.py``'s ``run_soak`` with
   its two ranks as threads of this process on the card, llama3-1b's
   widths in bf16 cut to 2 layers, a checkpoint every step (K1-K5 on the
@@ -171,15 +156,14 @@ held against its plain version, one launch a replay.
   transport down in its 2nd sync), 2 steps; each against its own clean
   run: final parameters bitwise the clean run's on both ranks, the
   counters of a fired plan, launches one train step's per step attempt;
-  each run's seconds, every resume's rebuild and restore ms, the
-  checkpoint bytes and directory, any stack a resume of 10 s or more
-  left (the ring's stall deadline is 15 s in this phase);
+  the checkpoint bytes and directory, any stack a resume of 10 s or
+  more left (the ring's stall deadline is 15 s in this phase);
 - the ring-attention demo: ``examples/ring_attention_demo_torch.py``
   at llama3-1b's attention widths (H16 KVH8 D128) and path (g)'s
   context, 8192 f32 tokens over two rank threads, forward and backward
   by explicit calls (K3, K5, K4 on their scalar routes): the output
-  and gradients against full attention on the card to 2e-3, the wall
-  and the launches;
+  and gradients against full attention on the card to 2e-3, the
+  launches;
 - the overlap smoke: ``tools/torch_overlap_smoke.py`` in its quick full
   mode (``TDR_OVERLAP_QUICK=1``) on the card, its two ranks as two
   processes over the emu ring, llama-tiny cut to 6 layers in f32 (K3,
@@ -196,8 +180,9 @@ held against its plain version, one launch a replay.
 Every phase prints one JSON line with its seconds. Each kernel's launch
 counter is set to 0 just before a path runs and read just after; the
 path fails unless every kernel ran there as often as the model says.
-Then one ``{"kernels": [...]}`` line, the card's name and power limit
-as nvidia-smi gives them, and as the last line
+Then one ``{"kernels": [...]}`` line (each kernel's error, its device
+ms, plain and library ms, its bound and launches by path), the card's
+name and power limit as nvidia-smi gives them, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises and the
 script exits non-zero without that line; it also fails at once where
 ``torch.cuda.is_available()`` is false.
@@ -213,7 +198,6 @@ import ctypes
 import dataclasses
 import faulthandler
 import importlib.util
-import io
 import json
 import math
 import os
@@ -233,6 +217,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from benchmark import roofline as rl
+from benchmark import roofline_mla as rlm
 from rocnrdma_tpu_torch.collectives.staging import staging
 from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
 from rocnrdma_tpu_torch.collectives.world import local_worlds
@@ -265,9 +251,10 @@ from rocnrdma_tpu_torch.utils.trace import trace
 
 REPO = Path(__file__).resolve().parent
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 L2_BYTES = 50 * 2 ** 20
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense, per type
+# The decode-mla cell's model: K7's and G1's shapes and bounds.
+MOONLIGHT = json.loads((REPO / "benchmark" / "configs"
+                        / "moonlight-16b-a3b.json").read_text())
 
 # Tolerances against the plain versions, with their reasons:
 # - f32 outputs: the kernel sums in another order than PyTorch's
@@ -326,7 +313,6 @@ PARITY_TOL = 1e-3
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_DECIDED_TOL = 2e-6
-BF16_PEAK = PEAK_OPS[torch.bfloat16]
 
 
 def emit(obj) -> None:
@@ -399,66 +385,6 @@ def eager_ms(fn, iters: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def profile_steps(step, n: int, ranges=()) -> dict:
-    """Device time per call of ``step`` from torch.profiler (CUPTI): the
-    sum of kernel times, the kernels launched, and the six costliest
-    kernels, with the host wall time of the same profiled calls and the
-    card's idle share over it (1 - busy / wall). ``None`` where the
-    profiler saw no device activity. Ranges that code marks on the
-    device timeline (user annotations such as
-    ``Optimizer.step#AdamW.step``) span kernels and are not counted.
-    For each prefix in ``ranges``, the device time of the kernels
-    launched inside the host ranges so named (``range_device_ms``)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / n
-    notes = {e.name for e in prof.events()
-             if getattr(e, "is_user_annotation", False)}
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in notes]
-    busy = sum(e.self_device_time_total for e in kern) / n / 1e3
-    if not kern or busy <= 0:
-        return {"profiled_wall_ms": wall, "device_ms": None,
-                "idle_share": None, "kernels": None, "top": None}
-    # One stream runs the kernels one at a time: more busy time than
-    # wall time means the profile counted something twice.
-    require(busy <= wall, f"profiled device busy {busy} ms exceeds the "
-                          f"wall time {wall} ms of the same calls")
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
-    def ms_of(match) -> float:
-        return sum(e.self_device_time_total for e in kern
-                   if match(e.key)) / n / 1e3
-
-    def gemm(key: str) -> bool:
-        return any(t in key.lower() for t in ("nvjet", "gemm", "cutlass",
-                                               "xmma"))
-
-    ours = {name: ms_of(lambda key, nm=name: nm in key)
-            for name in _native.KERNELS}
-    return {"profiled_wall_ms": wall, "device_ms": busy,
-            "idle_share": 1.0 - busy / wall,
-            **({"range_device_ms": {p: range_device_ms(prof, p, n)
-                                    for p in ranges}} if ranges else {}),
-            "kernels": sum(e.count for e in kern) / n,
-            "annotations_not_counted": sorted(notes),
-            "ported_kernel_ms": ours,
-            "library_gemm_ms": ms_of(gemm),
-            "library_gemm_calls": sum(e.count for e in kern
-                                      if gemm(e.key)) / n,
-            "foreach_ms": ms_of(lambda key: "multi_tensor_apply" in key),
-            "top": [{"kernel": e.key[:90],
-                     "ms": e.self_device_time_total / n / 1e3,
-                     "calls": e.count / n} for e in top]}
-
-
 def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
             atol: float, what: str) -> float:
     g, w = got.float(), want.float()
@@ -469,6 +395,78 @@ def max_err(got: torch.Tensor, want: torch.Tensor, rtol: float,
             f"{what}: {int(bad.sum())} elements outside rtol={rtol} "
             f"atol={atol}, max abs err {float(err.max())}")
     return float(err.max())
+
+
+def dtype_name(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def bound_by(t_s: float, flops: float, dtype: str) -> str:
+    """Which side bounds a yardstick time ``t_s`` of ``flops``
+    operations: the operations where it is their time at the peak."""
+    return "operations" if t_s == flops / rl.PEAK_FLOPS[dtype] else "bytes"
+
+
+def rmsnorm_bound(rows: int, d: int, dtype, backward: bool) -> tuple:
+    """K1's or K2's bound in ms at ``rows`` x ``d``, and "bytes"."""
+    fn = rl.rmsnorm_bwd_bound_s if backward else rl.rmsnorm_fwd_bound_s
+    return fn(rows, d, dtype_name(dtype)) * 1e3, "bytes"
+
+
+# Operations a visible (q, k) pair costs per head: K3 4·D, K4 8·D, K5 6·D.
+FLASH_OPS_PER_PAIR = {"flash_fwd": 4, "flash_bwd_dkv": 8, "flash_bwd_dq": 6}
+
+
+def flash_bound(kernel: str, b, h, kvh, s, d, causal, dtype) -> tuple:
+    """K3's, K4's or K5's bound in ms and what bounds it."""
+    name = dtype_name(dtype)
+    if kernel == "flash_fwd":
+        t = rl.flash_fwd_bound_s(b, h, kvh, s, d, causal, name)
+    else:
+        t = rl.flash_bwd_bounds_s(b, h, kvh, s, d, causal, name)[kernel]
+    pairs = s * (s + 1) // 2 if causal else s * s
+    flops = FLASH_OPS_PER_PAIR[kernel] * d * pairs * b * h
+    return t * 1e3, bound_by(t, flops, name)
+
+
+def decode_attn_bound(b, h, kvh, d, pos, dtype) -> tuple:
+    """K6's bound in ms and what bounds it; the benchmark has none. The
+    live prefix's K and V and q read once and out written, against 4·D
+    operations a live position and head."""
+    name, live = dtype_name(dtype), pos + 1
+    t, by = rl.bound_s(4.0 * d * live * b * h,
+                       (2 * b * kvh * live * d + 2 * b * h * d)
+                       * rl.ELT_BYTES[name], name)
+    return t * 1e3, by
+
+
+def mla_decode_bound(b: int, pos: int) -> tuple:
+    """K7's bound in ms over the first ``pos + 1`` positions of b bf16
+    latent caches, and what bounds it."""
+    c, live = rlm.dims(MOONLIGHT), pos + 1
+    t = rlm.mla_decode_bound_s(MOONLIGHT, b, live, "bfloat16")
+    flops = 2.0 * c.h * (2 * c.rank + c.rope) * b * live
+    return t * 1e3, bound_by(t, flops, "bfloat16")
+
+
+def grouped_swiglu_bound(n: int) -> tuple:
+    """G1's whole call over n tokens in ms, and what bounds it: every
+    expert's three weights and the picked rows' inputs, products and
+    outputs moved once, against the rows' 6·d·f operations. The
+    benchmark bounds each GEMM alone (``grouped_gemm_bounds``)."""
+    c = rlm.dims(MOONLIGHT)
+    rows = n * c.k
+    t, by = rl.bound_s(6.0 * rows * c.d * c.f,
+                       (3 * c.e * c.d * c.f + 2 * rows * c.d
+                        + 2 * rows * c.f) * 2, "bfloat16")
+    return t * 1e3, by
+
+
+def grouped_gemm_bounds(n: int) -> tuple:
+    """The benchmark's bounds of ``moe_gemm_up`` and ``moe_gemm_down``
+    over n tokens, in ms."""
+    up, down = rlm.moe_gemm_bounds_s(MOONLIGHT, n, "bfloat16")
+    return up * 1e3, down * 1e3
 
 
 # ---------------------------------------------------------------- phases
@@ -520,7 +518,7 @@ def kernel_resources() -> dict:
 
 
 def phase_build() -> dict:
-    secs = _native.build()
+    _native.build()
     for name in _native.KERNELS:
         _native.library(name)
     res = kernel_resources()
@@ -540,7 +538,7 @@ def phase_build() -> dict:
         require(len(inst) == 6 and all(r["stack"] == 0 and r["local"] == 0
                                        for r in inst.values()),
                 f"{kernel} scalar instances missing or spilling: {inst}")
-    return {"compile_s": secs, "resources": res}
+    return {"resources": res}
 
 
 def rmsnorm_case(rows: int, d: int, dtype, seed: int, timed: bool) -> dict:
@@ -554,17 +552,15 @@ def rmsnorm_case(rows: int, d: int, dtype, seed: int, timed: bool) -> dict:
            "max_abs_err": max_err(got, rmsnorm_reference(x, w), rtol, atol,
                                   f"rmsnorm {rows}x{d} {dtype}")}
     if timed:
-        elt = x.element_size()
-        sets = input_sets((x, w), out_bytes=x.numel() * elt)
+        sets = input_sets((x, w), out_bytes=x.numel() * x.element_size())
         lib_sets = [(a, b.to(dtype)) for a, b in sets]
+        bound, by = rmsnorm_bound(rows, d, dtype, backward=False)
         res.update(
             ms=time_ms(lambda a, b: rmsnorm(a, b), sets),
-            eager_ms=eager_ms(lambda: rmsnorm(x, w), 200),
             plain_ms=time_ms(lambda a, b: rmsnorm_reference(a, b), sets),
             library_ms=time_ms(lambda a, b: F.rms_norm(a, (d,), b, 1e-5),
                                lib_sets),
-            bound_ms=(2 * rows * d * elt + 4 * d) / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes")
+            bound_ms=bound, bound_by=by)
     return res
 
 
@@ -600,27 +596,17 @@ def rmsnorm_graph_case(rows: int, d: int, dtype, seed: int,
 
 def phase_rmsnorm() -> dict:
     cases = [rmsnorm_case(2048, 4096, torch.bfloat16, 1, True),   # path (a)
-             rmsnorm_case(2048, 4096, torch.float32, 2, True),
+             rmsnorm_case(2048, 4096, torch.float32, 2, False),
              rmsnorm_case(1000, 4096, torch.bfloat16, 3, False),  # ragged
-             rmsnorm_case(4, 4096, torch.bfloat16, 4, True),      # decode
-             rmsnorm_case(256, 2048, torch.float32, 5, True),     # path (b)
-             rmsnorm_case(4096, 2048, torch.bfloat16, 6, True),   # path (c)
+             rmsnorm_case(4, 4096, torch.bfloat16, 4, False),     # decode
+             rmsnorm_case(256, 2048, torch.float32, 5, False),    # path (b)
+             rmsnorm_case(4096, 2048, torch.bfloat16, 6, False),  # path (c)
              rmsnorm_case(128, 64, torch.float32, 9, False),      # overlap
              rmsnorm_case(32, 64, torch.float32, 10, False)]      # control
     # (a)'s decode step and (b) jit's layer step, inside a graph.
     graphed = [rmsnorm_graph_case(4, 4096, torch.bfloat16, 7),
                rmsnorm_graph_case(1, 2048, torch.float32, 8)]
     return {"cases": cases, "graphed": graphed}
-
-
-def flash_bound_ms(b, h, kvh, s, d, causal, dtype) -> tuple:
-    elt = torch.finfo(dtype).bits // 8
-    pairs = s * (s + 1) // 2 if causal else s * s
-    ops = 4.0 * d * pairs * b * h
-    nbytes = (2 * b * h * s * d + 2 * b * kvh * s * d) * elt + b * h * s * 4
-    t_ops = ops / PEAK_OPS[dtype] * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed,
@@ -651,13 +637,11 @@ def flash_case(b, h, kvh, s, d, dtype, causal, seed, timed,
                 what + ": two calls differ")
         res["deterministic"] = True
     if timed:
-        bound, by = flash_bound_ms(b, h, kvh, s, d, causal, dtype)
+        bound, by = flash_bound("flash_fwd", b, h, kvh, s, d, causal, dtype)
         sets = input_sets((q, k, v), out_bytes=q.numel() * q.element_size())
         res.update(
             ms=time_ms(lambda *a: flash_attention_lse(*a, causal=causal),
                        sets, iters=8),
-            eager_ms=eager_ms(lambda: flash_attention_lse(q, k, v,
-                                                          causal=causal), 8),
             plain_ms=time_ms(lambda *a: flash_attention_lse_reference(
                 *a, causal=causal), sets[:1], iters=3),
             library_ms=time_ms(lambda *a: F.scaled_dot_product_attention(
@@ -672,8 +656,8 @@ TC = "tensor_core"
 def phase_flash() -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     cases = [flash_case(4, 32, 8, 512, 128, bf, True, 1, True, TC),  # (a)
-             flash_case(1, 32, 8, 2048, 128, bf, True, 2, True),
-             flash_case(1, 32, 8, 2048, 128, bf, False, 3, True),
+             flash_case(1, 32, 8, 2048, 128, bf, True, 2, False),
+             flash_case(1, 32, 8, 2048, 128, bf, False, 3, False),
              flash_case(1, 32, 8, 1000, 128, bf, True, 4, False),  # odd S
              flash_case(1, 16, 8, 2048, 128, f32, True, 5, True),
              flash_case(1, 16, 8, 256, 128, f32, True, 6, True),  # path (b)
@@ -746,49 +730,29 @@ def rmsnorm_bwd_case(rows: int, d: int, dtype, seed: int,
             what + ": two calls differ")
     res["deterministic"] = True
     if timed:
-        elt = x.element_size()
-        sets = input_sets((x, w, dy), out_bytes=x.numel() * elt)
+        sets = input_sets((x, w, dy), out_bytes=x.numel() * x.element_size())
         lib_f, lib_fb = fwd_bwd_ms(
             lambda a, b: F.rms_norm(a, (d,), b, 1e-5), (x, w.to(dtype)), dy)
+        bound, by = rmsnorm_bound(rows, d, dtype, backward=True)
         res.update(
             ms=time_ms(lambda a, b, c: rmsnorm_bwd(a, b, c), sets),
             plain_ms=time_ms(lambda a, b, c: rmsnorm_bwd_reference(a, b, c),
                              sets),
             library_ms=lib_fb - lib_f, library_fwd_bwd_ms=lib_fb,
-            bound_ms=(3 * rows * d * elt + 8 * d) / HBM_BYTES_PER_S * 1e3,
-            bound_by="bytes")
+            bound_ms=bound, bound_by=by)
     return res
 
 
 def phase_rmsnorm_bwd() -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     cases = [rmsnorm_bwd_case(4096, 2048, bf, 11, True),   # path (c)
-             rmsnorm_bwd_case(4096, 2048, f32, 12, True),
+             rmsnorm_bwd_case(4096, 2048, f32, 12, False),
              rmsnorm_bwd_case(1000, 2048, bf, 13, False),  # ragged
              rmsnorm_bwd_case(1000, 2048, f32, 14, False),
              rmsnorm_bwd_case(200, 2048, f32, 15, False),  # train parity
              rmsnorm_bwd_case(128, 64, f32, 16, False),    # overlap smoke
              rmsnorm_bwd_case(32, 64, f32, 17, False)]     # control smoke
     return {"cases": cases}
-
-
-def flash_bwd_bounds(b, h, kvh, s, d, causal, dtype) -> dict:
-    """Bound of each backward kernel: 8·D (K4) and 6·D (K5) operations
-    per visible (q, k) pair per (b, h) over the dtype's peak, against
-    the bytes of q, dO, k, v, lse, delta in and its outputs out."""
-    elt = torch.finfo(dtype).bits // 8
-    pairs = s * (s + 1) // 2 if causal else s * s
-    q_bytes = b * h * s * d * elt
-    kv_bytes = b * kvh * s * d * elt
-    in_bytes = 2 * q_bytes + 2 * kv_bytes + 2 * b * h * s * 4
-    out = {}
-    for name, ops_per, out_bytes in (("flash_bwd_dkv", 8, 2 * kv_bytes),
-                                     ("flash_bwd_dq", 6, q_bytes)):
-        t_ops = ops_per * d * pairs * b * h / PEAK_OPS[dtype] * 1e3
-        t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
-                     else (t_bytes, "bytes"))
-    return out
 
 
 def merge_lse(out, lse, o2, l2):
@@ -848,7 +812,8 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
         lib_f, lib_fb = fwd_bwd_ms(
             lambda *a: F.scaled_dot_product_attention(
                 *a, is_causal=causal, enable_gqa=True), (q, k, v), do)
-        bounds = flash_bwd_bounds(b, h, kvh, s, d, causal, dtype)
+        bounds = {name: flash_bound(name, b, h, kvh, s, d, causal, dtype)
+                  for name in ("flash_bwd_dkv", "flash_bwd_dq")}
         res.update(
             dkv_ms=time_ms(lambda *a: flash_bwd_dkv(*a, causal=causal),
                            sets, iters=4),
@@ -867,8 +832,8 @@ def flash_bwd_case(b, h, kvh, s, d, dtype, causal, seed, timed,
 def phase_flash_bwd() -> dict:
     bf, f32 = torch.bfloat16, torch.float32
     cases = [flash_bwd_case(2, 16, 8, 2048, 128, bf, True, 21, True, TC),
-             flash_bwd_case(2, 16, 8, 2048, 128, bf, False, 22, True, TC),
-             flash_bwd_case(1, 32, 8, 2048, 128, bf, True, 23, True, TC),
+             flash_bwd_case(2, 16, 8, 2048, 128, bf, False, 22, False, TC),
+             flash_bwd_case(1, 32, 8, 2048, 128, bf, True, 23, False, TC),
              flash_bwd_case(1, 16, 8, 2048, 128, f32, True, 24, True),
              flash_bwd_case(1, 16, 8, 1000, 128, bf, True, 25, False),
              flash_bwd_case(1, 16, 8, 1000, 128, f32, False, 26, False),
@@ -927,11 +892,10 @@ def decode_attn_case(b, h, kvh, t, d, pos, dtype, seed, timed) -> dict:
     require(torch.equal(cached_attention(q, k, v, q_pos), got),
             what + ": two calls differ")
     if timed:
-        elt, live = q.element_size(), pos + 1
-        nbytes = (2 * b * kvh * live * d + 2 * b * h * d) * elt
-        ops = 4.0 * d * live * b * h
-        t_ops, t_bytes = ops / PEAK_OPS[dtype], nbytes / HBM_BYTES_PER_S
-        sets = input_sets((q, k, v, q_pos), out_bytes=q.numel() * elt)
+        live = pos + 1
+        bound, by = decode_attn_bound(b, h, kvh, d, pos, dtype)
+        sets = input_sets((q, k, v, q_pos),
+                          out_bytes=q.numel() * q.element_size())
         res.update(
             ms=time_ms(cached_attention, sets),
             plain_ms=time_ms(cached_attention_reference, sets[:1], iters=3),
@@ -939,8 +903,7 @@ def decode_attn_case(b, h, kvh, t, d, pos, dtype, seed, timed) -> dict:
                 F.scaled_dot_product_attention(
                     a, kk[:, :, :live], vv[:, :, :live], enable_gqa=True)),
                 sets),
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops > t_bytes else "bytes")
+            bound_ms=bound, bound_by=by)
     return res
 
 
@@ -956,7 +919,7 @@ def phase_decode_attn() -> dict:
              decode_attn_case(16, 32, 8, 8320, 128, 8250, bf, 55, True),
              # llama-tiny in f32, and llama3-1b's f32 heads
              decode_attn_case(2, 4, 2, 128, 16, 37, f32, 56, False),
-             decode_attn_case(1, 16, 8, 640, 128, 600, f32, 57, True)]
+             decode_attn_case(1, 16, 8, 640, 128, 600, f32, 57, False)]
     return {"cases": cases}
 
 
@@ -998,13 +961,11 @@ def mla_decode_case(b, t, pos, seed, timed) -> dict:
                                   what)}
     require(torch.equal(k7(q, ckv, q_pos), got), what + ": two calls differ")
     if timed:
-        nbytes = (b * (pos + 1) * ckv.shape[2] + q.numel()
-                  + b * mld.HEADS * mld.LATENT) * 2
+        bound, by = mla_decode_bound(b, pos)
         sets = input_sets((q, ckv, q_pos), out_bytes=got.numel() * 2)
         res.update(ms=time_ms(k7, sets),
                    plain_ms=time_ms(plain, sets[:1], iters=3),
-                   library_ms=None,
-                   bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes")
+                   library_ms=None, bound_ms=bound, bound_by=by)
     return res
 
 
@@ -1014,11 +975,11 @@ def grouped_gemm_case(n, seed, timed) -> dict:
     experts of 2048 → 1408, 6 a token) over ``n`` tokens: error, two calls
     bitwise equal, the many-row instance's launches (two a call where
     ``block_rows`` picks it, else none); timed, the call's device ms
-    beside the two GEMMs' bound (every expert's weights and the rows read
-    once, the rows' products: the larger of bytes and operations) and the
-    plain loop's wall ms, and each GEMM alone on ``align``'s layout beside
-    its own bound."""
-    e, d, f, k = 64, 2048, 1408, 6
+    beside its bound (``grouped_swiglu_bound``) and the plain loop's wall
+    ms, and where the many-row instance runs each GEMM alone on
+    ``align``'s layout beside the benchmark's bound of it."""
+    c = rlm.dims(MOONLIGHT)
+    e, d, f, k = c.e, c.d, c.f, c.k
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(n, d, generator=g, device="cuda").bfloat16()
     router = (torch.randn(d, e, generator=g, device="cuda") / d ** 0.5
@@ -1048,11 +1009,7 @@ def grouped_gemm_case(n, seed, timed) -> dict:
     require(torch.equal(moe.grouped_swiglu(x, ids, wts, *ws), got),
             what + ": two calls differ")
     if timed:
-        rows = n * k
-        nbytes = (3 * e * d * f + 2 * rows * d + 2 * rows * f) * 2
-        ops = 6.0 * rows * d * f
-        t_ops = ops / PEAK_OPS[torch.bfloat16]
-        t_bytes = nbytes / HBM_BYTES_PER_S
+        bound, by = grouped_swiglu_bound(n)
         sets = input_sets((x, ids, wts, *ws), out_bytes=x.numel() * 2)
         # The plain loop picks each expert's tokens with a host
         # synchronisation, so it cannot be captured: timed eagerly.
@@ -1061,11 +1018,10 @@ def grouped_gemm_case(n, seed, timed) -> dict:
                               iters=24 if n <= 4096 else 4),
                    plain_ms=eager_ms(lambda: moe.grouped_swiglu_reference(
                        x, ids, wts, *ws), 2),
-                   library_ms=None,
-                   bound_ms=max(t_ops, t_bytes) * 1e3,
-                   bound_by="operations" if t_ops > t_bytes else "bytes")
+                   library_ms=None, bound_ms=bound, bound_by=by)
+    if timed and bm == moe.MANY_ROWS:
         # Each GEMM alone (a graph of 24 launches; one set of inputs moves
-        # more than four times the L2 at either size).
+        # more than four times the L2).
         dest, row_slot, block_expert = moe.align(ids, e, bm)
         cap = row_slot.numel()
         row_w = torch.zeros(cap, device="cuda")
@@ -1076,12 +1032,7 @@ def grouped_gemm_case(n, seed, timed) -> dict:
                                             ws[0], ws[1], h), [()])
         down_ms = time_ms(lambda: moe.gemm_down(h, block_expert, row_w,
                                                 ws[2], out), [()])
-        up_bound = max(4.0 * rows * d * f / PEAK_OPS[torch.bfloat16],
-                       (2 * e * d * f + rows * d + rows * f) * 2
-                       / HBM_BYTES_PER_S) * 1e3
-        down_bound = max(2.0 * rows * d * f / PEAK_OPS[torch.bfloat16],
-                         (e * d * f + rows * f + rows * d) * 2
-                         / HBM_BYTES_PER_S) * 1e3
+        up_bound, down_bound = grouped_gemm_bounds(n)
         res.update(up_ms=up_ms, up_bound_ms=up_bound, down_ms=down_ms,
                    down_bound_ms=down_bound, gemms_ms=up_ms + down_ms,
                    gemms_bound_ms=up_bound + down_bound,
@@ -1141,18 +1092,13 @@ def expected_train_launches(model, steps: int) -> dict:
     return {k: v * steps for k, v in per_step.items()}
 
 
-def decode_uncaptured(model, prompt, new: int) -> tuple:
+def decode_uncaptured(model, prompt, new: int):
     """``generate``'s decode step run uncaptured (``DecodeLoop(capture=
-    False)``) on the same prompt: (tokens, seconds, the card
-    synchronised)."""
+    False)``) on the same prompt: its tokens."""
     b, p = prompt.shape
     cache_len = min(model.cfg.max_seq_len, -(-(p + new) // 128) * 128)
-    loop = llama.DecodeLoop(model, b, cache_len, capture=False)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    toks = loop.run(prompt, new)
-    torch.cuda.synchronize()
-    return toks, time.perf_counter() - t0
+    return llama.DecodeLoop(model, b, cache_len, capture=False).run(prompt,
+                                                                    new)
 
 
 def compare_rows(model, prompt, got, ref, what: str) -> dict:
@@ -1183,28 +1129,14 @@ def phase_generate_8b() -> dict:
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, p))).cuda()
     captured = graphs.captures()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     llama.generate(model, prompt, 2)            # warm cuBLAS; captures
-    torch.cuda.synchronize()
-    first_call_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    llama.generate(model, prompt, 2)            # the same, replayed
-    torch.cuda.synchronize()
-    capture_s = first_call_s - (time.perf_counter() - t0)
     require(graphs.captures() == captured + 1,
             f"the first call captured {graphs.captures() - captured} graphs")
-    t0 = time.perf_counter()
     first = llama.generate(model, prompt, 1)
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
     _native.reset_launches()
-    t0 = time.perf_counter()
     toks = llama.generate(model, prompt, new)
-    torch.cuda.synchronize()
-    total_s = time.perf_counter() - t0
     launches = _native.launches()
     peak = torch.cuda.max_memory_allocated()
     want = expected_launches(cfg, forward_steps=new, prefills=1,
@@ -1220,7 +1152,7 @@ def phase_generate_8b() -> dict:
             "generate is not deterministic across calls")
     again = llama.generate(model, prompt, new)
     require(torch.equal(again, toks), "two graphed calls differ")
-    unc, unc_s = decode_uncaptured(model, prompt, new)
+    unc = decode_uncaptured(model, prompt, new)
     vs_uncaptured = compare_rows(model, prompt, toks, unc, "path (a)")
     # The same tokens through the no-cache forward (teacher-forced):
     # the first token comes from the same function as the cached
@@ -1238,7 +1170,6 @@ def phase_generate_8b() -> dict:
     agree = float((full == toks).float().mean())
     require(agree >= 0.75, f"teacher-forced agreement {agree} < 0.75")
     del logits
-    breakdown = step_breakdown(model, prompt, toks)
     swap = weights_swap(model, prompt, new, toks)
     held = torch.cuda.memory_allocated()
     del model
@@ -1247,14 +1178,10 @@ def phase_generate_8b() -> dict:
     freed = held - torch.cuda.memory_allocated()
     torch.cuda.empty_cache()
     return {"config": cfg.name, "batch": b, "prompt": p, "new_tokens": new,
-            "prefill_ms": prefill_s * 1e3,
-            "decode_tok_s": b * (new - 1) / (total_s - prefill_s),
-            "decode_tok_s_uncaptured": b * (new - 1) / (unc_s - prefill_s),
-            "capture_s": capture_s, "generate_s": total_s,
             "freed_at_del_gb": freed / 1e9,
             "peak_mem_gb": peak / 1e9, "vs_uncaptured": vs_uncaptured,
             "teacher_forced_agreement": agree, "launches": launches,
-            "weights_swap": swap, **breakdown}
+            "weights_swap": swap}
 
 
 def weights_swap(model, prompt, new: int, old) -> dict:
@@ -1270,35 +1197,10 @@ def weights_swap(model, prompt, new: int, old) -> dict:
             "generate after a weights swap did not capture a new loop")
     require(not torch.equal(toks, old), "tokens did not change with the "
                                         "weights")
-    unc, _ = decode_uncaptured(model, prompt, new)
+    unc = decode_uncaptured(model, prompt, new)
     return {"new_capture": True,
             "vs_uncaptured": compare_rows(model, prompt, toks, unc,
                                           "path (a) after the swap")}
-
-
-def step_breakdown(model, prompt, toks) -> dict:
-    """Where a prefill and a decode step of path (a) spend their time:
-    host wall per step (synchronised, no profiler), and the card's busy
-    time against the wall time of the same profiled steps (idle share =
-    1 - busy / profiled wall). The decode step is ``generate``'s,
-    replayed from a graph, and the same step uncaptured."""
-    b, p = prompt.shape
-    cfg = model.cfg
-    with torch.inference_mode():
-        cache = llama.init_cache(cfg, b, 640, "cuda")
-        prefill = lambda: model(prompt, cache, 0)        # noqa: E731
-        prefill_wall = eager_ms(prefill, 3)
-        prefill_prof = profile_steps(prefill, 1)
-    out = {"prefill_step": {"wall_ms": prefill_wall, **prefill_prof}}
-    # 1 + 13 + 3 steps from position 512, inside the 640-long cache.
-    for name, capture in (("decode_step", True),
-                          ("decode_step_uncaptured", False)):
-        loop = llama.DecodeLoop(model, b, 640, capture=capture)
-        loop.start_sequence(prompt)
-        loop.step()
-        out[name] = {"wall_ms": eager_ms(loop.step, 10),
-                     **profile_steps(loop.step, 3)}
-    return out
 
 
 def phase_parity(state, cfg) -> dict:
@@ -1364,19 +1266,15 @@ def serve_requests(cfg) -> list:
             for i in range(5)]
 
 
-def drive_requests(batcher, reqs) -> float:
+def drive_requests(batcher, reqs) -> None:
     """Four requests, two steps, then the fifth joins mid-run; runs
-    until every request finished. Returns the wall seconds, the card
-    synchronised."""
-    t0 = time.perf_counter()
+    until every request finished."""
     for r in reqs[:4]:
         batcher.submit(r)
     batcher.step()
     batcher.step()
     batcher.submit(reqs[4])                           # joins mid-run
     batcher.run()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
 
 
 def phase_batcher(state, cfg, model) -> tuple:
@@ -1386,7 +1284,7 @@ def phase_batcher(state, cfg, model) -> tuple:
     batcher = ContinuousBatcher(None, pages, scfg, max_slots=4,
                                 device="cuda")
     _native.reset_launches()
-    wall = drive_requests(batcher, reqs)
+    drive_requests(batcher, reqs)
     launches = _native.launches()
     batcher.close()
     want = expected_launches(cfg, forward_steps=sum(
@@ -1399,13 +1297,9 @@ def phase_batcher(state, cfg, model) -> tuple:
                                                  "mid-run")
     checks = [_compare_to_generate(model, batcher.finished[r.id])
               for r in reqs]
-    lat = np.asarray(batcher.token_lat_us)
     return {"config": cfg.name + "/f32", "requests": len(reqs),
             "prompts": [int(r.prompt.size) for r in reqs],
-            "steps": batcher.step_no, "wall_s": wall,
-            "token_lat_us_p50": float(np.percentile(lat, 50)),
-            "token_lat_us_p99": float(np.percentile(lat, 99)),
-            "token_gaps": int(lat.size),
+            "steps": batcher.step_no,
             "page_bytes_per_step": pages.nbytes(),
             "page_elems": [int(pg.size) for pg in pages.pages],
             "vs_generate": checks, "launches": launches,
@@ -1424,7 +1318,7 @@ def phase_batcher_jit(cfg, model, pages, b: dict) -> dict:
     batcher = ContinuousBatcher(None, pages, scfg, max_slots=4,
                                 jit_decode=True, device="cuda")
     _native.reset_launches()
-    wall = drive_requests(batcher, reqs)
+    drive_requests(batcher, reqs)
     launches = _native.launches()
     batcher.close()
     want = expected_launches(cfg, forward_steps=sum(
@@ -1442,13 +1336,8 @@ def phase_batcher_jit(cfg, model, pages, b: dict) -> dict:
         model, r.prompt.tolist(), batcher.finished[r.id].tokens,
         b["tokens"][str(r.id)], f"request {r.id} against (b)")}
         for r in reqs]
-    lat = np.asarray(batcher.token_lat_us)
     return {"config": cfg.name + "/f32", "requests": len(reqs),
-            "steps": batcher.step_no, "wall_s": wall,
-            "wall_vs_b": wall / b["wall_s"],
-            "token_lat_us_p50": float(np.percentile(lat, 50)),
-            "token_lat_us_p99": float(np.percentile(lat, 99)),
-            "token_gaps": int(lat.size), "graphs": dec.graphs,
+            "steps": batcher.step_no, "graphs": dec.graphs,
             "pool_bytes": dec.pool_bytes, "vs_b": checks,
             "launches": launches}
 
@@ -1494,10 +1383,8 @@ def phase_hf_import(state, cfg) -> dict:
     the original, the geometry llama3-1b's; then the tied case (no
     ``lm_head.weight``), whose head must be the embedding's transpose."""
     hf_sd, hf_cfg = hf_layout(state, cfg)
-    t0 = time.perf_counter()
     got_cfg = config_from_hf(hf_cfg, name=cfg.name, dtype=cfg.dtype)
     got = from_hf_state_dict(got_cfg, hf_sd)
-    convert_s = time.perf_counter() - t0
     require(dataclasses.replace(got_cfg, dtype=llama.LLAMA3_1B.dtype)
             == llama.LLAMA3_1B, f"imported geometry {got_cfg}")
     require(got_cfg == cfg, f"imported config {got_cfg} != {cfg}")
@@ -1511,16 +1398,13 @@ def phase_hf_import(state, cfg) -> dict:
     nbytes = sum(t.numel() * t.element_size() for t in got.values())
     del got
     del hf_sd["lm_head.weight"]
-    t0 = time.perf_counter()
     tied = from_hf_state_dict(got_cfg, hf_sd)
-    tied_s = time.perf_counter() - t0
     require(torch.equal(tied["lm_head"], tied["embed"].t()),
             "tied checkpoint: lm_head is not embed.T")
     require(torch.equal(tied["embed"], state["embed"].cpu()),
             "tied checkpoint: embed changed")
     return {"config": cfg.name + "/f32", "tensors": len(state),
-            "bytes": nbytes, "convert_s": convert_s,
-            "tied_convert_s": tied_s, "bitwise_equal": True,
+            "bytes": nbytes, "bitwise_equal": True,
             "geometry": {f.name: getattr(got_cfg, f.name)
                          for f in dataclasses.fields(got_cfg)
                          if f.name != "dtype"}}
@@ -1533,12 +1417,10 @@ def phase_hf_import(state, cfg) -> dict:
 # The bytes that crossed the ring are read from the engine's flight
 # recorder (drained again after close, when every gather has landed):
 # wire_tx sums what this rank sent, land what landed in its gather
-# windows. The host split is the package's spans: serve.upload (waits
-# for the stream's earlier kernels) and serve.prefetch (the window
-# filled from the rank's shard, the gather posted) beside the compute.
+# windows.
 SERVE_RANK = r"""
-import dataclasses, json, sys, time
-import numpy as np, torch
+import dataclasses, json, sys
+import torch
 import chip_smoke as cs
 from rocnrdma_tpu_torch import telemetry
 from rocnrdma_tpu_torch.collectives.world import RingWorld
@@ -1555,15 +1437,12 @@ rank, port = int(sys.argv[1]), int(sys.argv[2])
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.cuda.set_device(0)
-t0 = time.perf_counter()
 cfg1 = dataclasses.replace(llama.LLAMA3_1B, dtype=torch.float32)
 hf_sd, hf_cfg = cs.hf_layout(llama.init_params(cfg1, seed=1, device="cuda"),
                              cfg1)
 torch.cuda.empty_cache()
-t1 = time.perf_counter()
 cfg = config_from_hf(hf_cfg, name=cfg1.name, dtype=torch.float32)
 state = from_hf_state_dict(cfg, hf_sd)
-import_s = time.perf_counter() - t1
 del hf_sd
 scfg = ServeConfig.from_llama(cfg)
 pages = pack_llama_params(scfg, llama.params_to_flax(state))
@@ -1572,7 +1451,6 @@ for name in ("rmsnorm_fwd", "flash_fwd"):
     _native.library(name)
 x = torch.ones(64, 64, device="cuda")
 float((x @ x).sum())
-setup_s = time.perf_counter() - t0
 
 world = RingWorld(Engine("emu"), rank, 2, port, timeout_ms=120000)
 batcher = ContinuousBatcher(world, pages, scfg, max_slots=4, device="cuda")
@@ -1580,32 +1458,22 @@ reqs = cs.serve_requests(cfg)
 telemetry.reset()
 trace.reset()
 _native.reset_launches()
-wall = cs.drive_requests(batcher, reqs)
+cs.drive_requests(batcher, reqs)
 launches = _native.launches()
 events = telemetry.timeline()
 frac = telemetry.overlap_fraction(events, span="serve.compute")
-spans = {name: sum(e[2]["dur_s"] for e in trace.events(name))
-         for name in ("serve.compute", "serve.page_wait", "serve.kv_stream",
-                      "serve.request_join", "serve.upload", "serve.prefetch")}
 st = batcher.streamer.stats()
 batcher.close()
 events += telemetry.drain()
 wire = {name: sum(e.arg for e in events if e.name == name)
         for name in ("wire_tx", "land")}
-lat = np.asarray(batcher.token_lat_us)
-out = {"rank": rank, "link_tier": world.link_tier, "setup_s": setup_s,
-       "import_s": import_s, "steps": batcher.step_no, "wall_s": wall,
-       "step_ms": wall * 1e3 / batcher.step_no,
-       "token_gaps": int(lat.size),
-       "token_lat_us_p50": float(np.percentile(lat, 50)),
-       "token_lat_us_p99": float(np.percentile(lat, 99)),
+out = {"rank": rank, "link_tier": world.link_tier,
+       "steps": batcher.step_no,
        "tokens": {str(r.id): batcher.finished[r.id].tokens for r in reqs},
        "launches": launches, "depth": batcher.streamer.depth,
        "pages_fetched": st["pages"], "gather_bytes": st["bytes"],
        "wire_tx_bytes": wire["wire_tx"], "landed_bytes": wire["land"],
        "kv_pages": trace.counter("serve.kv_pages"),
-       "span_s": spans, "upload_s": spans["serve.upload"],
-       "prefetch_s": spans["serve.prefetch"],
        "overlap_fraction": frac["overlap_fraction"],
        "wire_events": frac["wire_events"],
        "telemetry_dropped": telemetry_dropped(),
@@ -1676,13 +1544,9 @@ def phase_serve_two_slice(cfg, b: dict) -> dict:
                 "events recorded")
         require(got["telemetry_dropped"] == 0, f"path (h) rank {r}: the "
                 f"flight recorder dropped {got['telemetry_dropped']} events")
-    keys = ("setup_s", "import_s", "steps", "wall_s", "step_ms",
-            "token_gaps", "token_lat_us_p50", "token_lat_us_p99",
-            "pages_fetched", "gather_bytes", "landed_bytes", "wire_tx_bytes",
-            "kv_pages", "span_s",
-            "upload_s", "prefetch_s", "overlap_fraction", "wire_events",
-            "telemetry_dropped",
-            "launches")
+    keys = ("steps", "pages_fetched", "gather_bytes", "landed_bytes",
+            "wire_tx_bytes", "kv_pages", "overlap_fraction", "wire_events",
+            "telemetry_dropped", "launches")
     return {"config": cfg.name + "/f32", "world": 2, "engine": "emu",
             "link_tier": res[0]["link_tier"], "depth": res[0]["depth"],
             "requests": len(reqs),
@@ -1690,24 +1554,7 @@ def phase_serve_two_slice(cfg, b: dict) -> dict:
             "tokens_equal_path_b": True,
             **{f"{k}_by_rank": [got[k] for got in res] for k in keys},
             "launches": {name: sum(got["launches"][name] for got in res)
-                         for name in _native.KERNELS},
-            "note": "both ranks time-slice one card and upload pageable "
-                    "pages: step times are not two-card numbers"}
-
-
-def model_flops(cfg, b: int, s: int) -> float:
-    """Model FLOPs of one train step, remat recompute not counted:
-    6 per matmul parameter per token (the layers' projections and the
-    LM head; the embedding is a lookup) plus the causal attention
-    products, 4·D per visible (q, k) pair per head forward, times 3 for
-    forward and backward."""
-    hd = cfg.head_dim
-    per_layer = cfg.d_model * hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads) \
-        + 3 * cfg.d_model * cfg.d_ff
-    matmul_params = cfg.n_layers * per_layer + cfg.d_model * cfg.vocab_size
-    pairs = s * (s + 1) // 2
-    attn = 3 * 4 * hd * pairs * cfg.n_heads * b * cfg.n_layers
-    return 6.0 * matmul_params * b * s + attn
+                         for name in _native.KERNELS}}
 
 
 def phase_train_1b(policy: str = "full") -> dict:
@@ -1718,18 +1565,9 @@ def phase_train_1b(policy: str = "full") -> dict:
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s + 1))).cuda()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     losses = [trainer.step(tokens)]                   # warm
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
-
     _native.reset_launches()
-    step_ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(trainer.step(tokens))          # float() syncs
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses += [trainer.step(tokens) for _ in range(steps)]
     launches = _native.launches()
     peak = torch.cuda.max_memory_allocated()
     want = expected_train_launches(trainer.model, steps)
@@ -1743,29 +1581,17 @@ def phase_train_1b(policy: str = "full") -> dict:
             f"path (c) launches per step {per_step}")
     require(all(np.isfinite(losses)), f"non-finite loss {losses}")
     require(losses[-1] < losses[0], f"loss did not fall: {losses}")
-
-    prof = profile_steps(lambda: trainer.step(tokens), 1)
-    mean_ms = float(np.mean(step_ms))
-    flops = model_flops(cfg, b, s)
     del trainer
     torch.cuda.empty_cache()
     return {"config": cfg.name + "/bf16/remat", "remat_policy": policy,
-            "batch": b, "seq": s,
-            "lr": 3e-4, "weight_decay": 0.1, "warm_step_s": warm_s,
-            "step_ms": step_ms, "step_ms_mean": mean_ms,
-            "tokens_per_s": b * s / (mean_ms / 1e3),
-            "model_tflop_per_step": flops / 1e12,
-            "mfu_formula": "(6*matmul_params*B*S + 12*D*H*L*B*S(S+1)/2) "
-                           "/ (step_s * 989e12), remat not counted",
-            "mfu": flops / (mean_ms / 1e3) / BF16_PEAK,
+            "batch": b, "seq": s, "lr": 3e-4, "weight_decay": 0.1,
             "peak_mem_gb": peak / 1e9, "losses": losses,
-            "launches": launches, "launches_per_step": per_step,
-            "profiled_step": prof}
+            "launches": launches, "launches_per_step": per_step}
 
 
 def phase_train_1b_dots(c: dict) -> dict:
     """Path (c) with ``remat_policy="dots"``: its model, weights and
-    batch, one warm step then 4 timed. Gates: path (c)'s, and each
+    batch, one warm step then 4. Gates: path (c)'s, and each
     step's loss equal to (c)'s in this run (bitwise where the card
     repeats its GEMMs bit for bit, within 1e-5 relative otherwise; the
     policy moves which products are kept, not what they compute), K1-K5
@@ -1778,16 +1604,10 @@ def phase_train_1b_dots(c: dict) -> dict:
             f"(c)'s {c['losses'][:n]}")
     require(out["launches_per_step"] == c["launches_per_step"],
             f"path (c) dots launches {out['launches_per_step']} != (c)'s")
-    prof, cprof = out["profiled_step"], c["profiled_step"]
     return {**out, "path_c_losses": c["losses"][:n],
             "losses_equal_path_c_bitwise": out["losses"] == c["losses"][:n],
             "loss_max_rel_diff_vs_c": rel,
-            "path_c_step_ms_mean": c["step_ms_mean"],
-            "path_c_peak_mem_gb": c["peak_mem_gb"],
-            "kernels_per_step_vs_c": [prof["kernels"], cprof["kernels"]],
-            "gemm_calls_per_step_vs_c": [prof.get("library_gemm_calls"),
-                                         cprof.get("library_gemm_calls")],
-            "device_ms_vs_c": [prof["device_ms"], cprof["device_ms"]]}
+            "path_c_peak_mem_gb": c["peak_mem_gb"]}
 
 
 def step_agreement(what: str, got, want, lr: float) -> dict:
@@ -2141,7 +1961,6 @@ def phase_xslice() -> dict:
             except BaseException as e:  # surfaced below
                 errs[r] = e
         ts = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
-        t0 = time.perf_counter()
         for t in ts:
             t.start()
         for t in ts:
@@ -2150,7 +1969,6 @@ def phase_xslice() -> dict:
         for e in errs:
             if e is not None:
                 raise e
-        return time.perf_counter() - t0
 
     res = {"tree_bytes": tree_bytes, "channels": worlds[0].channels,
            "link_tier": worlds[0].link_tier,
@@ -2169,7 +1987,7 @@ def phase_xslice() -> dict:
             want = {k: [(a + b) / 2 for a, b in zip(tr[0][k], tr[1][k])]
                     for k in tr[0]}
             staged0 = staging.bytes
-            wall = run(shims, tr)
+            run(shims, tr)
             staged = staging.bytes - staged0
             require(staged == 2 * tree_bytes * 2,
                     f"{mode}: staged {staged} bytes, want {4 * tree_bytes}")
@@ -2204,22 +2022,12 @@ def phase_xslice() -> dict:
                 if name == "warm":
                     calls["residual_carried_max"] = carried
                 res_in = [r.clone() for r in kept]
-            split = [{k.replace("_s", "_ms"): v * 1e3
-                      for k, v in s.last_split.items()} for s in shims]
-            calls[name] = {"wall_ms": wall * 1e3, "staged_bytes": staged,
-                           "split_ms_by_rank": split}
-            if mode == "fused":
-                calls[name]["ring_bus_gb_s"] = tree_bytes / min(
-                    s.last_split["ring_s"] for s in shims) / 1e9
+            calls[name] = {"staged_bytes": staged}
             del tr, want, ins
         for s in shims:
             s.close()
         calls["bitwise_vs_fused"] = not mode.startswith("wire")
         res[mode] = calls
-    res["bus_formula"] = "tree bytes * 2(n-1)/n / ring_s, n = 2"
-    res["split_note"] = ("overlap modes: gather = start() (enqueue every "
-                         "D2H, wait, compress, launch), ring = finish()'s "
-                         "wait on the handles, scatter = write-back")
     for w in worlds:
         w.close()
     torch.cuda.empty_cache()
@@ -2296,7 +2104,7 @@ def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
     """The gates every two-slice path holds (each rank reported every
     step, equal digests across ranks after every step, staged bytes 2 x
     the gradient bytes, launches per step equal to path (c)'s, losses
-    finite and falling) and its mean split over the timed steps."""
+    finite and falling)."""
     cfg, b, s = llama.LLAMA3_1B, 2, 2048
     per = [{ln["step"]: ln for ln in lines if "step" in ln}
            for lines in ranks]
@@ -2319,49 +2127,31 @@ def two_slice_summary(ranks: list, steps: int, c_per_step: dict,
                     f"!= {c_per_step}")
             require(ln["staged_bytes"] == want_bytes,
                     f"{what} staged {ln['staged_bytes']} != {want_bytes}")
-    timed = [[per[r][k] for k in range(2, steps + 1)] for r in range(2)]
-
-    def mean(key):
-        return float(np.mean([ln[key] for lines in timed for ln in lines]))
-
-    step_ms = mean("step_ms")
     launches = {name: sum(per[r][k]["launches"][name] for r in range(2)
                           for k in range(1, steps + 1))
                 for name in c_per_step}
     finals = [next(ln for ln in lines if "final_digest" in ln)
               for lines in ranks]
-    split_keys = [k for k in ("grads_ms", "sync_ms", "apply_ms",
-                              "stage_ms", "gather_ms", "ring_ms",
-                              "scatter_ms") if k in timed[0][0]]
     return {"config": f"{cfg.name}/{str(cfg.dtype).split('.')[-1]}/remat",
             "ranks": 2,
             "batch_per_rank": b, "seq": s, "engine": per[0][0]["engine"],
             "link_tier": per[0][0]["link_tier"],
             "overlap": per[0][0]["overlap"],
             "per_layer": per[0][0]["per_layer"],
-            "steps": steps, "timed_steps": steps - 1,
-            "step_ms_by_rank": [[ln["step_ms"] for ln in lines]
-                                for lines in timed],
-            "step_ms_mean": step_ms,
-            **{f"{k}_mean": mean(k) for k in split_keys},
+            "steps": steps,
             "staged_bytes_per_step": per[0][steps]["staged_bytes"],
             "grad_bytes": grad_bytes(cfg),
-            "ring_bus_gb_s": (grad_bytes(cfg) / (mean("ring_ms") / 1e3) / 1e9
-                              if mean("ring_ms") > 0 else None),
-            "tokens_per_s": 2 * b * s / (step_ms / 1e3),
             "losses": losses, "digests_equal_every_step": True,
             "digests": [per[0][k]["digest"] for k in range(steps + 1)],
             "peak_mem_gb_by_rank": [f["peak_mem_gb"] for f in finals],
             "launches_per_step_per_rank": c_per_step,
-            "launches": launches,
-            "note": "both ranks time-slice one card: grads_ms is not a "
-                    "two-card number"}, finals
+            "launches": launches}, finals
 
 
 def phase_two_slice_dp(c_per_step: dict) -> dict:
     """Path (d): two rank processes of llama3-1b bf16 with remat, batch
-    2 × seq 2048 per rank, the fused sync. Step 1 warms; steps 2-3 are
-    timed (path (f) holds its 3 steps against these)."""
+    2 × seq 2048 per rank, the fused sync, 3 steps (path (f) holds its 3
+    steps against these)."""
     steps = 3
     res, _ = two_slice_summary(run_two_slice([], steps), steps, c_per_step,
                                "path (d)")
@@ -2399,8 +2189,7 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     layer changes no bit. Where they differ, path (d) is run again: if
     (d) repeats its own digests, the difference is a fault; if it does
     not, the backward is not bitwise repeatable on this card and (e)'s
-    losses are held to (d)'s within 1e-3 relative instead. Step 1 warms,
-    step 2 is timed."""
+    losses are held to (d)'s within 1e-3 relative instead. 2 steps."""
     steps = 2
     env = {"TDR_TELEMETRY": "1", "TDR_TELEMETRY_RING": str(1 << 21)}
     ranks = run_two_slice(["--per-layer"], steps, env)
@@ -2409,26 +2198,17 @@ def phase_two_slice_dp_per_layer(c_per_step: dict, d: dict) -> dict:
     res.update(against_path_d(res["digests"], res["losses"], d, c_per_step,
                               "path (e)", "the per-layer sync"))
     tel = [f["telemetry_timed_steps"] for f in finals]
-    res["telemetry_by_rank"] = tel
-    for key in ("overlap_fraction", "compute_overlap_fraction"):
+    for key in ("overlap_fraction", "compute_overlap_fraction",
+                "telemetry_dropped"):
         res[key] = [t[key] for t in tel]
-    res["telemetry_dropped"] = [t["telemetry_dropped"] for t in tel]
-    res["ring_split_ms_per_step"] = [
-        {k: v / (steps - 1) for k, v in t["ring_split_ms"].items()}
-        for t in tel]
-    res["fold_busy_ms_per_step"] = [t["fold_busy_ms"] / (steps - 1)
-                                    for t in tel]
-    res["timing_note"] = ("grads_ms ends with torch.cuda.synchronize(), so "
-                          "it includes the last bucket's D2H on the copy "
-                          "stream")
     return res
 
 
 # The elastic paths' ranks: the example behind a sync that counts its
 # calls, or with the per-layer sync its bucket pushes, SIGKILLs its
 # process at the given count (0: never), after writing the moment to its
-# standard output, and first sleeps LATE_S seconds at count LATE_AT (0:
-# never). SIGUSR1 dumps every thread's stack to its standard error.
+# standard output. SIGUSR1 dumps every thread's stack to its standard
+# error.
 # With TDR_RESUME_STACKS set, every thread's stack is appended to
 # <TDR_RESUME_STACKS>.<pid> every 30 s while the trainer resumes.
 KILL_SWITCH = r"""
@@ -2455,8 +2235,7 @@ if STACKS:
 
     trainer_mod.Trainer._resume = stacked_resume
 
-DIE_AT, LATE_AT, LATE_S = int(sys.argv[1]), int(sys.argv[2]), float(
-    sys.argv[3])
+DIE_AT = int(sys.argv[1])
 
 
 class KillSwitch(torch_shim.CrossSliceAllReduce):
@@ -2465,8 +2244,6 @@ class KillSwitch(torch_shim.CrossSliceAllReduce):
     @staticmethod
     def tick():
         KillSwitch.ticks += 1
-        if KillSwitch.ticks == LATE_AT:
-            time.sleep(LATE_S)
         if KillSwitch.ticks == DIE_AT:
             print(json.dumps({"killed_monotonic": time.monotonic()}),
                   flush=True)
@@ -2489,7 +2266,7 @@ class KillSwitch(torch_shim.CrossSliceAllReduce):
 
 
 torch_shim.CrossSliceAllReduce = KillSwitch
-sys.argv = sys.argv[4:]
+sys.argv = sys.argv[2:]
 runpy.run_path(sys.argv[0], run_name="__main__")
 """
 ELASTIC_STEPS, ELASTIC_DIE_AT = 3, 2
@@ -2533,30 +2310,26 @@ def stop(proc) -> None:
             proc.wait()
 
 
-def run_elastic(addr: str, root: str, late_s: float = 0.0, env=None,
-                steps: int = ELASTIC_STEPS, die_at: int = ELASTIC_DIE_AT,
-                extra=(), what: str = "path (f)") -> tuple:
+def run_elastic(addr: str, root: str, env: dict, steps: int, die_at: int,
+                extra, what: str) -> list:
     """An elastic path's ranks, ``steps`` steps of the example with
     ``extra`` arguments: rank 0 and rank 1 (behind ``KILL_SWITCH``,
     dying at its ``die_at``-th sync call or bucket push); once rank 1 is
-    dead (it must die of SIGKILL), rank 1 again. With ``late_s``, rank 0
-    enters the sync call rank 1 dies in that many seconds late; ``env``
-    adds to the ranks' environment. Each incarnation's standard output,
-    and the monotonic moments rank 1 was seen dead and started again."""
+    dead (it must die of SIGKILL), rank 1 again. ``env`` adds to the
+    ranks' environment. Each incarnation's standard output."""
     args = two_slice_args(steps) + list(extra) + [
         "--controller", addr, "--elastic-dir", os.path.join(root, "ck")]
     env = {**os.environ, "TDR_RING_TIMEOUT_MS": "120000",
            "TDR_POSTMORTEM_DIR": os.path.join(root, "postmortem"),
-           **(env or {})}
+           **env}
     files = []
 
-    def spawn(rank: int, die: int, late: float = 0.0):
+    def spawn(rank: int, die: int):
         out, err = (open(os.path.join(root, f"r{rank}.{len(files)}.{k}"),
                          "w+") for k in ("out", "err"))
         files.append((out, err))
         return subprocess.Popen(
-            [sys.executable, "-c", KILL_SWITCH, str(die),
-             str(die_at if late else 0), str(late)] + args
+            [sys.executable, "-c", KILL_SWITCH, str(die)] + args
             + ["--rank", str(rank)], cwd=REPO, stdout=out, stderr=err,
             env=env)
 
@@ -2576,18 +2349,16 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0, env=None,
             f"---\n{e[-6000:]}" for name, (o, e) in zip(
                 ("rank 0", "rank 1", "restarted rank 1"), texts()))
 
-    procs = [spawn(0, 0, late_s), spawn(1, die_at)]
+    procs = [spawn(0, 0), spawn(1, die_at)]
     waited = "300 s for rank 1's kill"
     try:
         procs[1].wait(timeout=300)
-        dead = time.monotonic()
         if procs[1].returncode != -signal.SIGKILL:
             raise RuntimeError(report(f"{what} rank 1 exited "
                                       f"{procs[1].returncode}, not by "
                                       f"SIGKILL"))
         procs.append(spawn(1, 0))
-        started = time.monotonic()
-        deadline = started + ELASTIC_RECOVERY_S
+        deadline = time.monotonic() + ELASTIC_RECOVERY_S
         waited = f"{ELASTIC_RECOVERY_S} s after rank 1's restart"
         rcs = [p.wait(timeout=max(1, deadline - time.monotonic()))
                for p in (procs[0], procs[2])]
@@ -2611,7 +2382,7 @@ def run_elastic(addr: str, root: str, late_s: float = 0.0, env=None,
     for name, rc, (_, err) in (("rank 0", rcs[0], got[0]),
                                ("restarted rank 1", rcs[1], got[2])):
         require(rc == 0, f"{what} {name} exited {rc}: {err[-3000:]}")
-    return [t[0] for t in got], dead, started
+    return [t[0] for t in got]
 
 
 def explain_incident(incident: Path) -> dict:
@@ -2640,15 +2411,14 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
     rebuilt; every step's digests equal on every
     rank; one recovery on the coordinator and the ranks' generation
     its; each step's launches ``per_attempt`` per attempt. Returns the
-    numbers (with ``explain_incident`` of rank 0's incident directory,
-    read before the directory goes), each rank's step lines and rank 0's
-    postmortem bundle."""
+    summary (with ``explain_incident`` of rank 0's incident directory,
+    read before the directory goes) and rank 0's postmortem bundle."""
     cfg = llama.LLAMA3_1B
     ckpt_bytes = 3 * grad_bytes(cfg)          # params and two moments
     root, free = checkpoint_root(2 * 2 * ckpt_bytes + (1 << 30))
     coord, addr = start_coordinator()
     try:
-        outs, dead, started = run_elastic(
+        outs = run_elastic(
             addr, root, steps=steps, die_at=die_at, extra=extra, what=what,
             env={"TDR_RESUME_STACKS": os.path.join(root, "stacks")})
         metrics = ControlClient(addr).metrics()
@@ -2698,7 +2468,6 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
     require(len(resumed) == 1 and resumed[0]["step"] == kill_step,
             f"{what} rank 0 resumed at steps "
             f"{[(ln['step'], ln['resumes']) for ln in resumed]}")
-    res = resumed[0]
     final0 = next(ln for ln in r0 if "final_digest" in ln)
     final1 = next(ln for ln in r1b if "final_digest" in ln)
     require(final0["resume"] >= 1 and final0["rebuild"] >= 1,
@@ -2718,7 +2487,6 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
             and served.get("generation") == final0["generation"] + 2,
             f"{what} coordinator generation {served} against the ranks' "
             f"{final0['generation']} / {final1['generation']}")
-    first1 = next(ln for ln in r1b if "ready_monotonic" in ln)
     out = {"config": f"{cfg.name}/bf16/remat", "ranks": 2,
            "steps": steps, "killed_at_tick": die_at,
            "checkpoint_dir_free_bytes": free,
@@ -2726,37 +2494,14 @@ def elastic_path(what: str, steps: int, kill_step: int, die_at: int,
            "digests_equal_every_step": True, "losses": losses,
            "ckpt_bytes_by_rank": [lines[-1]["ckpt_bytes"]
                                   for lines in by_rank],
-           "ckpt_save_ms_by_rank": [[ln["ckpt_save_ms"] for ln in lines]
-                                    for lines in by_rank],
-           "ckpt_d2h_ms_by_rank": [[ln["ckpt_d2h_ms"] for ln in lines]
-                                   for lines in by_rank],
-           "ckpt_write_ms_by_rank": [[ln["ckpt_write_ms"] for ln in lines]
-                                     for lines in by_rank],
-           "restore_ms_rank0_resume": res["restore_ms"],
-           "restore_read_h2d_ms_rank0_resume": [res["restore_read_ms"],
-                                                res["restore_h2d_ms"]],
-           "restore_ms_rank1_start": first1["restore_ms"],
-           "restore_read_h2d_ms_rank1_start": [first1["restore_read_ms"],
-                                               first1["restore_h2d_ms"]],
-           "detect_ms": (res["resume_monotonic"][0] - killed[0]) * 1e3,
-           "rank1_seen_dead_ms_after_kill": (dead - killed[0]) * 1e3,
-           "rebuild_ms": res["rebuild_ms"],
-           "rank1_start_to_world_s": first1["world_ready_monotonic"]
-           - started,
-           "rank1_start_to_rejoin_s": first1["ready_monotonic"] - started,
-           "resumed_step_ms": res["step_ms"],
-           "finite_ms_by_rank": [[ln["finite_ms"] for ln in lines]
-                                 for lines in by_rank],
            "coordinator": served,
            "rank_generation": final0["generation"],
            "resume_stacks": stacks,
            "postmortem_explain": explained,
            "launches": {name: sum(ln["launches"][name] for lines in by_rank
                                   for ln in lines) for name in per_attempt},
-           "launches_per_step_per_rank": per_attempt,
-           "note": "detect_ms runs from rank 1's kill to rank 0's resume "
-                   "and includes whatever of rank 0's step was left"}
-    return out, by_rank, bundle
+           "launches_per_step_per_rank": per_attempt}
+    return out, bundle
 
 
 def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
@@ -2765,7 +2510,7 @@ def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
     SIGKILLs itself in its 2nd sync call and is started again. Gates:
     ``elastic_path``'s, every step's digests equal to path (d)'s, rank
     0's postmortem bundle."""
-    out, by_rank, bundle = elastic_path(
+    out, bundle = elastic_path(
         "path (f)", ELASTIC_STEPS, ELASTIC_DIE_AT, ELASTIC_DIE_AT,
         c_per_step)
     require(bundle is not None and bundle["format"] == "tdr-postmortem-v1"
@@ -2784,158 +2529,10 @@ def phase_two_slice_elastic(c_per_step: dict, d: dict) -> dict:
     require(ex["bundles"] and listed == [b[4:-5] for b in ex["bundles"]],
             f"path (f) tdr_explain lists ranks {listed}, bundles "
             f"{ex['bundles']}")
-    clean = [ln for lines in by_rank for ln in lines
-             if ln["step"] > 1 and ln["step"] != ELASTIC_DIE_AT]
-    out.update({
-        "clean_step_ms": [ln["step_ms"] for ln in clean],
-        "clean_step_ms_mean": float(np.mean([ln["step_ms"]
-                                             for ln in clean])),
-        "clean_step_ms_less_save_mean": float(np.mean(
-            [ln["step_ms"] - ln["ckpt_save_ms"] for ln in clean])),
-        "path_d_step_ms_mean": d["step_ms_mean"],
-        "finite_ms_clean_mean": float(np.mean([ln["finite_ms"]
-                                               for ln in clean])),
-        "postmortem_error": bundle["error"]})
+    out["postmortem_error"] = bundle["error"]
     out.update(against_path_d(out["digests"], out["losses"], d, c_per_step,
                               "path (f)", "the elastic resume"))
     return out
-
-
-RING_SIZES = ("4M", "64M", "1G")
-
-
-def allreduce_tool(args: list, env=None) -> tuple:
-    """The port's ``tools/allreduce.py`` at world 2 as one process per
-    rank (the two ranks' links negotiate as path (d)'s do): rank 0's
-    record, and each rank's link tier as it reports it."""
-    port = free_port() + 100
-    cmd = [sys.executable, "-m", "rocnrdma_tpu_torch.tools.allreduce",
-           "--world", "2", "--port", str(port), "--engine", "emu",
-           "--json"] + args
-    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True, env={**os.environ, **(env or {})})
-             for r in range(2)]
-    try:
-        outs = [p.communicate(timeout=300) for p in procs]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    tiers = []
-    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
-        require(p.returncode == 0,
-                f"allreduce tool rank {r} exited {p.returncode}: "
-                f"{err[-2000:]}")
-        tier = [ln.split(":", 1)[1].strip() for ln in err.splitlines()
-                if ln.startswith("link tier:")]
-        require(len(tier) == 1, f"allreduce tool rank {r} gave no link "
-                f"tier: {err[-2000:]}")
-        tiers += tier
-    return json.loads(outs[0][0].strip().splitlines()[-1]), tiers
-
-
-def ring_threads(size: str, iters: int) -> tuple:
-    """The port's allreduce tool's ``run_threads`` on two threads of
-    this process (world 2, bf16): (bus GB/s, link tier)."""
-    from rocnrdma_tpu_torch.tools import allreduce as tool
-
-    worlds = local_worlds(2, free_port() + 100, spec="emu")
-    try:
-        tier = worlds[0].link_tier
-        count = tool.parse_sizes(size)[0] // 2
-        dt = tool.run_threads(worlds, count, torch.bfloat16, iters)
-    finally:
-        for w in worlds:
-            w.close()
-    require(dt > 0, f"ring threads at {size}: {dt} s per op")
-    return count * 2 * tool.bus_fraction("allreduce", 2) / dt / 1e9, tier
-
-
-def phase_ring_bus_by_size() -> dict:
-    """The ring alone, by message size: the port's allreduce tool at
-    world 2 in bf16, 3 iterations per size, as two rank processes and as
-    two threads of one process; the 64 MiB case once more across
-    processes with the flight recorder on. Bus GB/s = bytes * 2(n-1)/n
-    / s per op."""
-    res = {"dtype": "bfloat16", "iters": 3, "world": 2,
-           "processes": {}, "processes_link_tier": {}, "threads": {},
-           "threads_link_tier": {}}
-    for size in RING_SIZES:
-        args = ["--bytes", size, "--dtype", "bfloat16", "--iters", "3"]
-        rec, res["processes_link_tier"][size] = allreduce_tool(args)
-        res["processes"][size] = rec["bus_GBps"]
-        res["threads"][size], res["threads_link_tier"][size] = \
-            ring_threads(size, 3)
-    rec, res["processes_link_tier"]["64M_telemetry"] = allreduce_tool(
-        ["--bytes", "64M", "--dtype", "bfloat16", "--iters", "3"],
-        env={"TDR_TELEMETRY": "1"})
-    res["processes_64M_telemetry"] = rec["bus_GBps"]
-    return res
-
-
-# The perftest sweep: every power of two from 4 KiB to 1 GiB.
-PERF_SIZES, PERF_ITERS = "4K:1G", 8
-
-
-def perf_tool(op: str, processes: int) -> dict:
-    """The port's ``tools/perf.py`` (``ib_{write,read}_bw``'s analogue)
-    on the emu engine, ``--json``, its client in this process: both ends
-    here (``--loopback``), or against a ``--listen`` process on this host
-    (the QP then negotiates the cross-process CMA link that paths (d)-(h)
-    ride). The client's record."""
-    from rocnrdma_tpu_torch.tools import perf as tool
-
-    args = ["--engine", "emu", "--op", op, "--sizes", PERF_SIZES,
-            "--iters", str(PERF_ITERS), "--port", str(free_port() + 100)]
-    server = None
-    if processes == 2:
-        server = subprocess.Popen(
-            [sys.executable, "-m", "rocnrdma_tpu_torch.tools.perf", *args,
-             "--listen", "--bind", "127.0.0.1"], cwd=REPO,
-            stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
-    buf = io.StringIO()
-    try:
-        with contextlib.redirect_stdout(buf):
-            rc = tool.main(args + (["--host", "127.0.0.1", "--json"]
-                                   if server else ["--loopback", "--json"]))
-    finally:
-        if server is not None:
-            try:
-                _, err = server.communicate(timeout=120)
-            finally:
-                if server.poll() is None:
-                    server.kill()
-                    server.wait()
-    require(rc == 0, f"perf tool ({op}, {processes} processes) exited {rc}")
-    if server is not None:
-        require(server.returncode == 0, f"perf tool server ({op}) exited "
-                f"{server.returncode}: {err[-2000:]}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
-
-
-def phase_perftest() -> dict:
-    """The verb-level link: RDMA WRITE and READ, 4 KiB to 1 GiB, 8
-    operations of each size, all in flight at once (the tool keeps
-    min(``--qd`` 16, ``--iters``) outstanding), in one process and across
-    two. GB/s by size."""
-    from rocnrdma_tpu_torch.tools.perf import parse_sizes
-
-    res = {"engine": "emu", "sizes": PERF_SIZES, "iters": PERF_ITERS}
-    want = parse_sizes(PERF_SIZES)
-    for processes, mode in ((1, "loopback"), (2, "processes")):
-        for op in ("write", "read"):
-            rec = perf_tool(op, processes)
-            sweep = rec["sweep"]
-            require([r["bytes"] for r in sweep] == want,
-                    f"perftest {mode} {op}: sizes {sweep}")
-            require(all(r["GBps"] > 0 for r in sweep),
-                    f"perftest {mode} {op}: {sweep}")
-            res[f"{mode}_{op}_GBps"] = {str(r["bytes"]): r["GBps"]
-                                        for r in sweep}
-            res[f"{mode}_{op}_peak_GBps"] = rec["peak_GBps"]
-    return res
 
 
 # Sequence parallelism at llama3-1b's longest context: the global
@@ -3121,8 +2718,8 @@ def sp_reference_loss(cfg, b: int, s: int) -> float:
 
 
 def sp_mode_summary(ranks: list, mode: str, cfg) -> dict:
-    """Path (g)'s gates for one mode and its mean numbers over the
-    timed steps (2..)."""
+    """Path (g)'s gates for one mode and its bytes, launches and peak
+    memory."""
     what = f"path (g) {mode}"
     s_local = SP_SEQ // SP_WORLD
     per = [{ln["step"]: ln for ln in lines if "step" in ln}
@@ -3148,26 +2745,10 @@ def sp_mode_summary(ranks: list, mode: str, cfg) -> dict:
                     f"{ln['attn_wire_bytes']} != {wire}")
             require(ln["staged_bytes"] == staged, f"{what}: rank {r} staged "
                     f"{ln['staged_bytes']} != {staged}")
-    timed = [[per[r][k] for k in range(2, SP_STEPS + 1)]
-             for r in range(SP_WORLD)]
-
-    def by_rank(key):
-        return [float(np.mean([ln[key] for ln in lines])) for lines in timed]
-
-    step_ms = float(np.mean(by_rank("step_ms")))
-    transport = ["attn_wait_ms", "attn_total_ms"] if mode == "ring" \
-        else ["attn_reshard_ms"]
     finals = [next(ln for ln in lines if "final_digest" in ln)
               for lines in ranks]
     return {"mode": mode, "link_tier": per[0][0]["link_tier"],
             "engine": per[0][0]["engine"],
-            "step_ms_by_rank": [[ln["step_ms"] for ln in lines]
-                                for lines in timed],
-            "step_ms_mean": step_ms,
-            "tokens_per_s": SP_BATCH * SP_SEQ / (step_ms / 1e3),
-            **{f"{key}_by_rank": by_rank(key) for key in (
-                "grads_ms", "sync_ms", "apply_ms", "gather_ms", "ring_ms",
-                "scatter_ms", *transport)},
             "attn_calls_per_step": per[0][1]["attn_calls"],
             "wire_bytes_per_step_by_rank": [per[r][1]["attn_wire_bytes"]
                                             for r in range(SP_WORLD)],
@@ -3186,8 +2767,8 @@ def sp_mode_summary(ranks: list, mode: str, cfg) -> dict:
 def phase_seq_parallel() -> dict:
     """Path (g): ``examples/seq_parallel_train_torch.py`` as two rank
     processes on the card, llama3-1b bf16 with remat at its longest
-    context (8192 tokens, a 4096-token shard a rank), ring then Ulysses;
-    one warm step and 1 timed. Gates: equal digests on both ranks after
+    context (8192 tokens, a 4096-token shard a rank), ring then Ulysses,
+    2 steps each. Gates: equal digests on both ranks after
     every step, each mode's first loss within 2e-2 relative of the other
     mode's and of the single-device model's on the whole sequence,
     launches, wire and staged bytes per rank per step as the model and
@@ -3196,8 +2777,7 @@ def phase_seq_parallel() -> dict:
     ref = sp_reference_loss(cfg, SP_BATCH, SP_SEQ)
     out = {"config": f"{cfg.name}/bf16/remat", "world": SP_WORLD,
            "batch": SP_BATCH, "seq": SP_SEQ, "seq_local": SP_SEQ // SP_WORLD,
-           "steps": SP_STEPS, "timed_steps": SP_STEPS - 1,
-           "single_device_loss": ref, "loss_rel_tol": SP_LOSS_TOL}
+           "steps": SP_STEPS, "single_device_loss": ref, "loss_rel_tol": SP_LOSS_TOL}
     for mode in SP_MODES:
         cmd = [sys.executable] + seq_parallel_args(mode) + [
             "--port", str(free_port() + 100)]
@@ -3214,8 +2794,6 @@ def phase_seq_parallel() -> dict:
     rel = abs(first["ring"] - first["ulysses"]) / abs(first["ring"])
     require(rel <= SP_LOSS_TOL, f"path (g) first losses {first}")
     out["first_loss_rel_diff_ring_vs_ulysses"] = rel
-    out["note"] = ("both ranks time-slice one card: step and grads ms are "
-                   "not two-card numbers")
     return out
 
 
@@ -3249,31 +2827,6 @@ def mesh_local_shape(trainer, b: int, s: int) -> list:
     tp = mesh.shape["tp"] if trainer.model.attn_split else 1
     return [b // mesh.shape["dp"], cfg.n_heads // tp, cfg.n_kv_heads // tp,
             s, cfg.head_dim]
-
-
-def range_device_ms(prof, prefix: str, n: int) -> float:
-    """Device ms per call of the kernels launched inside the host ranges
-    named ``prefix...`` (``record_function``), outermost ranges only."""
-    from torch.autograd import DeviceType
-
-    total = 0.0
-    for e in prof.events():
-        if e.device_type != DeviceType.CPU or not e.name.startswith(prefix):
-            continue
-        parent = e.cpu_parent
-        while parent is not None and not parent.name.startswith(prefix):
-            parent = parent.cpu_parent
-        if parent is None:
-            total += e.device_time_total
-    return total / n / 1e3
-
-
-# The host ranges of the cross-position operations
-# (``parallel/mesh.py``, ``models/llama_mesh.py``): the tp sums, the
-# weight gathers, the logits' gather, the copies' gradient sum and the
-# broadcast after AdamW.
-MESH_RANGES = tuple(f"mesh.{k}" for k in (
-    "psum", "all_gather", "gather", "grad_sum", "broadcast"))
 
 
 def phase_mesh_parity(state, cfg) -> dict:
@@ -3324,7 +2877,7 @@ def phase_mesh_train(c: dict) -> dict:
     """Path (i), bf16: ``Trainer("llama3-1b", {"dp": 2, "tp": 2},
     devices=["cuda:0"] * 4, remat=True)`` at path (c)'s batch (2 x 2048,
     ``default_rng(0)``) and weights (``init_params(seed=0)``), one warm
-    step then 3 timed. Gates: the first loss within 2e-2 relative of
+    step then 3. Gates: the first loss within 2e-2 relative of
     (c)'s, every kernel's launches per step as the shapes give, K3/K4/K5
     on the tensor-core route at the positions' local shape, losses
     falling."""
@@ -3334,17 +2887,9 @@ def phase_mesh_train(c: dict) -> dict:
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (b, s + 1))).cuda()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     losses = [trainer.step(tokens)]                   # warm
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t0
     _native.reset_launches()
-    step_ms = []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        losses.append(trainer.step(tokens))
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
+    losses += [trainer.step(tokens) for _ in range(steps)]
     launches = _native.launches()
     peak = torch.cuda.max_memory_allocated()
     per_step = expected_mesh_launches(cfg, trainer.mesh.size)
@@ -3360,19 +2905,11 @@ def phase_mesh_train(c: dict) -> dict:
               for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
     require(all(r == TC for r in routes.values()),
             f"path (i) routes at {shape}: {routes}")
-    prof = profile_steps(lambda: trainer.step(tokens), 1, MESH_RANGES)
-    mean_ms = float(np.mean(step_ms))
     del trainer
     torch.cuda.empty_cache()
-    busy = prof["device_ms"]
-    mesh_ms = (sum(prof["range_device_ms"].values()) if busy is not None
-               else None)
     return {"config": cfg.name + "/bf16/remat", "mesh": MESH,
             "devices": MESH_DEVICES, "batch": b, "seq": s,
             "local_attention_shape": shape, "routes": routes,
-            "warm_step_s": warm_s, "step_ms": step_ms,
-            "step_ms_mean": mean_ms, "path_c_step_ms_mean": c["step_ms_mean"],
-            "tokens_per_s": b * s / (mean_ms / 1e3),
             "peak_mem_gb": peak / 1e9, "losses": losses,
             "path_c_first_loss": c["losses"][0], "first_loss_rel_err": rel,
             "first_loss_rel_tol": MESH_LOSS_TOL,
@@ -3380,19 +2917,14 @@ def phase_mesh_train(c: dict) -> dict:
                 k: v // steps for k, v in launches.items()},
             "expected_per_step": per_step,
             "expected_rule": "positions (4) x path (c)'s per step: K1 "
-                             "(2L+1)+2L, K3 2L, K2 2L+1, K5 L, K4 L at L 16",
-            "profiled_step": prof, "mesh_ops_device_ms": mesh_ms,
-            "compute_device_ms": (busy - mesh_ms if busy is not None
-                                  else None),
-            "note": "the four positions share one H100: not multi-card "
-                    "numbers"}
+                             "(2L+1)+2L, K3 2L, K2 2L+1, K5 L, K4 L at L 16"}
 
 
 def phase_mesh_two_slice(d: dict) -> dict:
     """Path (i), two slices: ``examples/two_slice_dp_torch.py --mesh
     dp=1,tp=2 --devices cuda:0,cuda:0`` as two rank processes over the
-    emu ring, llama3-1b bf16 with remat, 2 x 2048 a rank, one warm step
-    then 1 timed. Gates: equal digests on both ranks after every step,
+    emu ring, llama3-1b bf16 with remat, 2 x 2048 a rank, 2 steps.
+    Gates: equal digests on both ranks after every step,
     path (d)'s staged bytes per rank per step, launches per rank per
     step as the shapes give (two positions), each rank's first loss
     within 2e-2 relative of (d)'s."""
@@ -3409,8 +2941,7 @@ def phase_mesh_two_slice(d: dict) -> dict:
             f"{first} vs path (d)'s {[x[0] for x in d['losses']]}")
     return {**res, "mesh": MESH_TWO_SLICE, "devices": "cuda:0,cuda:0",
             "first_loss_rel_err_vs_d": rel,
-            "expected_rule": "positions (2) x path (c)'s per step",
-            "path_d_step_ms_mean": d["step_ms_mean"]}
+            "expected_rule": "positions (2) x path (c)'s per step"}
 
 
 def phase_mesh_two_slice_elastic(mesh2: dict, f: dict) -> dict:
@@ -3426,7 +2957,7 @@ def phase_mesh_two_slice_elastic(mesh2: dict, f: dict) -> dict:
     same leaves, whole)."""
     cfg = dataclasses.replace(llama.LLAMA3_1B, remat=True)
     steps, buckets = 2, cfg.n_layers + 3
-    out, _, _ = elastic_path(
+    out, _ = elastic_path(
         "path (i) per-layer elastic", steps, 2, buckets + 1,
         expected_mesh_launches(cfg, 2),
         extra=["--mesh", MESH_TWO_SLICE, "--devices", "cuda:0,cuda:0",
@@ -3441,10 +2972,7 @@ def phase_mesh_two_slice_elastic(mesh2: dict, f: dict) -> dict:
     return {**out, "mesh": MESH_TWO_SLICE, "devices": "cuda:0,cuda:0",
             "per_layer": True, "killed_at_bucket_push": buckets + 1,
             "digests_equal_fused_two_slices": True,
-            "path_f_ckpt_bytes": f["ckpt_bytes_by_rank"][0],
-            "path_f_rebuild_ms": f["rebuild_ms"],
-            "path_f_restore_ms_rank1_start": f["restore_ms_rank1_start"],
-            "path_f_rank1_start_to_rejoin_s": f["rank1_start_to_rejoin_s"]}
+            "path_f_ckpt_bytes": f["ckpt_bytes_by_rank"][0]}
 
 
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
@@ -3478,11 +3006,10 @@ def load_path(name: str, *parts):
 
 @contextlib.contextmanager
 def watched_resumes(stacks_path: str, resumes: list, every_s: int):
-    """``Trainer._resume`` of every rank thread timed (its rebuild and
-    restore ms from the trainer's ``last_split``) into ``resumes`` and,
-    while any rank resumes, every thread's stack appended to
-    ``stacks_path`` every ``every_s`` seconds: the elastic paths' dump,
-    in process."""
+    """``Trainer._resume`` of every rank thread noted (its attempt and
+    error) in ``resumes`` and, while any rank resumes, every thread's
+    stack appended to ``stacks_path`` every ``every_s`` seconds: the
+    elastic paths' dump, in process."""
     resume = Trainer._resume
     lock = threading.Lock()
     active = [0]
@@ -3496,7 +3023,6 @@ def watched_resumes(stacks_path: str, resumes: list, every_s: int):
                 f.flush()
                 faulthandler.dump_traceback_later(every_s, repeat=True,
                                                   file=f)
-        t0 = time.perf_counter()
         try:
             return resume(self, exc, attempt)
         finally:
@@ -3504,10 +3030,7 @@ def watched_resumes(stacks_path: str, resumes: list, every_s: int):
                 active[0] -= 1
                 if active[0] == 0:
                     faulthandler.cancel_dump_traceback_later()
-            resumes.append({"attempt": attempt, "error": str(exc)[:160],
-                            "resume_s": time.perf_counter() - t0,
-                            "rebuild_ms": self.last_split.get("rebuild_ms"),
-                            "restore_ms": self.last_split.get("restore_ms")})
+            resumes.append({"attempt": attempt, "error": str(exc)[:160]})
 
     Trainer._resume = watched
     try:
@@ -3570,10 +3093,8 @@ def phase_soak_elastic() -> dict:
         ckpt = os.path.join(root, name)
         _native.reset_launches()
         since = time.monotonic()
-        t0 = time.perf_counter()
         final, stats = tfs.run_soak(steps, seed, ckpt_dir=ckpt,
                                     config=SOAK_CFG, device="cuda", **kw)
-        seconds = time.perf_counter() - t0
         launches = _native.launches()
         saves = [f for at, _, f in trace.events("ckpt.save") if at >= since]
         attempts = steps * 2 + stats["resumes"]
@@ -3584,10 +3105,7 @@ def phase_soak_elastic() -> dict:
         sizes = [os.path.getsize(os.path.join(ckpt, f"rank{r}.npz"))
                  for r in range(2)]
         shutil.rmtree(ckpt)
-        runs[name] = {"seconds": seconds, "ckpt_bytes_by_rank": sizes,
-                      "saves": len(saves),
-                      "save_d2h_write_s": [[f["d2h_s"], f["write_s"]]
-                                           for f in saves],
+        runs[name] = {"ckpt_bytes_by_rank": sizes, "saves": len(saves),
                       "launches": launches, **stats}
         return final
 
@@ -3649,8 +3167,6 @@ def phase_soak_elastic() -> dict:
             "drop_after": drop_after, "flap": [1, 2],
             "parity": {"a": True, "b": True}, "runs": runs,
             "resumes": resumes,
-            "rebuild_ms": [r["rebuild_ms"] for r in resumes],
-            "restore_ms": [r["restore_ms"] for r in resumes],
             "resume_stacks": [text] if "File " in text else [],
             "launches": {k: sum(r["launches"][k] for r in runs.values())
                          for k in per_attempt},
@@ -3684,9 +3200,7 @@ def phase_ring_attention_demo() -> dict:
             "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs, "decode_attn": 0,
             **NOT_ON_LLAMA}
     require(launches == want, f"demo launches {launches} != {want}")
-    t0 = time.perf_counter()
     errs = demo.max_errors(res)
-    ref_s = time.perf_counter() - t0
     require(max(errs.values()) < demo.TOL,
             f"demo: ring attention against full attention {errs}")
     routes = {name: kernel_route(name, DEMO_SHAPE["head_dim"],
@@ -3694,9 +3208,7 @@ def phase_ring_attention_demo() -> dict:
     require(set(routes.values()) == {"scalar"}, f"demo routes {routes}")
     return {"shape": DEMO_SHAPE, "seq": w * DEMO_SHAPE["seq_local"],
             "dtype": "float32", "causal": True, "routes": routes,
-            "max_abs_err": errs, "tol": demo.TOL,
-            "wall_s": res["wall_s"], "reference_s": ref_s,
-            "launches": launches}
+            "max_abs_err": errs, "tol": demo.TOL, "launches": launches}
 
 
 # The overlap smoke's model: llama-tiny at the tool's 6 layers.
@@ -3736,9 +3248,8 @@ def phase_overlap_smoke() -> dict:
             launches[name] += n
     routes = {name: kernel_route(name, OVERLAP_CFG.head_dim, torch.float32)
               for name in FLASH_KERNELS}
-    keep = ("grads_ms_per_step", "sync_ms_per_step", "ring_ms_per_step",
-            "census", "pending_async", "walls", "fused_step_s", "losses",
-            "fused_losses", "steps_run")
+    keep = ("census", "pending_async", "losses", "fused_losses",
+            "steps_run")
     return {"config": "llama-tiny", "n_layers": OVERLAP_CFG.n_layers,
             "dtype": "float32", "routes": routes, "launches": launches,
             "device": detail["device"],
@@ -3748,8 +3259,6 @@ def phase_overlap_smoke() -> dict:
             "compute_windows": rec["compute_windows"],
             "compute_gate": rec["compute_gate"],
             "wire_events": rec["wire_events"],
-            "bucketed_step_s": rec["bucketed_step_s"],
-            "fused_step_s": rec["fused_step_s"],
             "per_rank": [{k: rk[k] for k in keep}
                          for rk in detail["per_rank"]]}
 
@@ -3817,8 +3326,6 @@ def main() -> int:
                      train)
     run_phase("hbm_cuda_exporter", phase_hbm_cuda_exporter)
     run_phase("xslice_sync_vs_plain", phase_xslice)
-    run_phase("ring_bus_by_size", phase_ring_bus_by_size)
-    run_phase("perftest_emu", phase_perftest)
     dp = run_phase("path_d_two_slice_dp_llama3_1b_bf16", phase_two_slice_dp,
                    train["launches_per_step"])
     dpl = run_phase("path_e_two_slice_dp_per_layer_llama3_1b_bf16",

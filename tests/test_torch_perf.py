@@ -8,7 +8,9 @@ against the JAX package's (``rocnrdma_tpu/tools/perf.py``).
   for writes and reads, with and without ``--telemetry``;
 - ``--hbm fake`` pins its buffer through the port's
   ``RegistrationManager`` and ``FakeHBMExporter``, and a one-sided
-  write lands in the pinned range.
+  write lands in the pinned range;
+- as two processes, a ``--listen`` child and a client, writes and reads
+  sweep every size with both ends exiting 0.
 """
 
 import contextlib
@@ -16,6 +18,9 @@ import ctypes
 import io
 import json
 import os
+import subprocess
+import sys
+from pathlib import Path
 
 import pytest
 import torch
@@ -28,6 +33,8 @@ from rocnrdma_tpu_torch.transport.engine import (Engine, loopback_pair,
                                                  telemetry_reset)
 
 from test_hier import port_band
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True)
@@ -123,3 +130,31 @@ def test_hbm_fake_pins_through_the_registry():
         cli.close()
     finally:
         e.close()
+
+
+@pytest.mark.parametrize("op", ["write", "read"])
+def test_sweep_across_two_processes(op):
+    """The tool's server as a ``--listen`` child process and its client
+    in this one, over the emu engine (the cross-process link the
+    two-process paths ride): both ends exit 0, the client's record holds
+    every size of the sweep, each at a positive rate."""
+    args = ["--engine", "emu", "--op", op, "--sizes", "4K:64K", "--iters",
+            "8", "--port", str(port_band(2))]
+    server = subprocess.Popen(
+        [sys.executable, "-m", "rocnrdma_tpu_torch.tools.perf", *args,
+         "--listen", "--bind", "127.0.0.1"], cwd=REPO,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = tperf.main(args + ["--host", "127.0.0.1", "--json"])
+        _, err = server.communicate(timeout=120)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+    assert rc == 0
+    assert server.returncode == 0, err[-2000:]
+    sweep = json.loads(buf.getvalue().strip().splitlines()[-1])["sweep"]
+    assert [r["bytes"] for r in sweep] == tperf.parse_sizes("4K:64K")
+    assert all(r["GBps"] > 0 for r in sweep), sweep

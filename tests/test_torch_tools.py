@@ -2,13 +2,18 @@
 ``rocnrdma_tpu/tools/allreduce.py``: the same ``--json`` record keys at
 world 2 in threads, a correct sum through ``run_rank``, the same bus
 convention, the port's own ``parse_sizes`` equal to
-``rocnrdma_tpu/tools/perf.py``'s, and a rank's failure in
-``run_threads`` raised instead of left waiting at the start barrier.
+``rocnrdma_tpu/tools/perf.py``'s, a rank's failure in ``run_threads``
+raised instead of left waiting at the start barrier, and the tool as two
+rank processes, with the flight recorder off and on.
 """
 
 import json
+import os
 import re
+import subprocess
+import sys
 import threading
+from pathlib import Path
 
 import pytest
 import torch
@@ -19,6 +24,8 @@ from rocnrdma_tpu_torch.collectives.world import local_worlds
 from rocnrdma_tpu_torch.tools import allreduce as tool
 
 from test_hier import port_band
+
+REPO = Path(__file__).resolve().parent.parent
 
 
 def _record(main, argv, capsys):
@@ -112,3 +119,33 @@ def test_run_threads_raises_a_rank_failure():
         w.close()
     assert not hung
     assert len(outcome) == 1 and str(outcome[0]) == "rank 1 failed", outcome
+
+
+@pytest.mark.parametrize("telemetry", [None, "1"])
+def test_two_rank_processes(telemetry):
+    """The tool at world 2 as one process per rank, 4 MiB of bf16 over
+    the emu engine (the ranks' link negotiates as the two-process
+    training paths' does), ``TDR_TELEMETRY`` unset and set: each rank
+    exits 0, reports its link tier once and a positive bus rate."""
+    env = {k: v for k, v in os.environ.items() if k != "TDR_TELEMETRY"}
+    if telemetry is not None:
+        env["TDR_TELEMETRY"] = telemetry
+    cmd = [sys.executable, "-m", "rocnrdma_tpu_torch.tools.allreduce",
+           "--world", "2", "--port", str(port_band(8)), "--engine", "emu",
+           "--bytes", "4M", "--dtype", "bfloat16", "--iters", "3", "--json"]
+    procs = [subprocess.Popen(cmd + ["--rank", str(r)], cwd=REPO, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=240) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, (r, err[-2000:])
+        tiers = [ln for ln in err.splitlines() if ln.startswith("link tier:")]
+        assert len(tiers) == 1, (r, err[-2000:])
+        rec = json.loads(out.strip().splitlines()[-1])
+        assert rec["bytes"] == 4 << 20 and rec["bus_GBps"] > 0, (r, rec)
