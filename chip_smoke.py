@@ -8,8 +8,10 @@ holds each against its plain PyTorch version at its path's shapes (and
 ragged, f32/bf16, causal/full variants), shows each backward kernel, K6
 (``decode_attn``, the cached decode step's attention, at (a)'s and the
 benchmark cells' decode shapes), K7 (``mla_decode``, the latent-attention
-decode step's) and G1 (``moe_gemm_up`` and ``moe_gemm_down``, the expert
-layer's grouped GEMMs), both at the decode-mla cell's shapes, bitwise
+decode step's), G1 (``moe_gemm_up`` and ``moe_gemm_down``, the expert
+layer's grouped GEMMs) and K8 (``moe_combine``, the expert layer's sum
+of each token's picks and the shared experts' row, bitwise the plain
+combine), all at the decode-mla cell's shapes, bitwise
 deterministic across two calls, times each at the shapes of the
 ``kernels`` line, then drives the serving and training paths through the
 entry points a user calls. K3 (``flash_fwd``), K4 (``flash_bwd_dkv``)
@@ -459,6 +461,18 @@ def grouped_swiglu_bound(n: int) -> tuple:
     t, by = rl.bound_s(6.0 * rows * c.d * c.f,
                        (3 * c.e * c.d * c.f + 2 * rows * c.d
                         + 2 * rows * c.f) * 2, "bfloat16")
+    return t * 1e3, by
+
+
+def combine_bound(n: int) -> tuple:
+    """K8's bound in ms over n tokens at Moonlight's widths, and what
+    bounds it; the benchmark has none. Each token's k picked rows of the
+    down GEMM's output, its shared row and its k int64 indices read once
+    and its row written, against d·k f32 adds on the CUDA cores."""
+    c = rlm.dims(MOONLIGHT)
+    t, by = rl.bound_s(1.0 * n * c.d * c.k,
+                       n * c.k * c.d * 2 + 2 * n * c.d * 2 + n * c.k * 8,
+                       "float32")
     return t * 1e3, by
 
 
@@ -926,7 +940,7 @@ def phase_decode_attn() -> dict:
 # The latent-attention, routed-expert model's kernels (K7, G1), which no
 # Llama path launches.
 NOT_ON_LLAMA = {"mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0,
-                "moe_gemm_many": 0}
+                "moe_gemm_many": 0, "moe_combine": 0}
 
 
 def mla_decode_case(b, t, pos, seed, timed) -> dict:
@@ -1041,12 +1055,56 @@ def grouped_gemm_case(n, seed, timed) -> dict:
     return res
 
 
+def combine_case(n, seed, timed, one_expert=False) -> dict:
+    """K8 (``moe.combine``) against the plain combine
+    (``moe.combine_reference``: a gather, an f32 widening and an f32 add
+    a pick, then the shared add, in torch) over ``align``'s layout of n
+    tokens' seeded picks at Moonlight's widths (6 of 64 experts, d 2048),
+    the down GEMM's rows random: bitwise equal, with and without the
+    shared row, and two calls bitwise equal; timed, its device ms beside
+    its bound (``combine_bound``) and the plain combine's device ms."""
+    c = rlm.dims(MOONLIGHT)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.rand(n, c.e, generator=g, device="cuda").argsort(1)[:, :c.k]
+    if one_expert:
+        ids[:] = 5
+    bm = moe.block_rows(n * c.k, c.e)
+    dest, row_slot, _ = moe.align(ids, c.e, bm)
+    out = torch.randn(row_slot.numel(), c.d, generator=g,
+                      device="cuda").bfloat16()
+    add = torch.randn(n, c.d, generator=g, device="cuda").bfloat16()
+    got = moe.combine(out, dest, add)
+    what = f"moe combine {n} tokens" + (" on one expert" if one_expert
+                                        else "")
+    require(torch.equal(got, moe.combine_reference(out, dest, add)),
+            what + ": not bitwise the plain combine")
+    require(torch.equal(moe.combine(out, dest),
+                        moe.combine_reference(out, dest)),
+            what + ": not bitwise the plain combine without the shared row")
+    require(torch.equal(moe.combine(out, dest, add), got),
+            what + ": two calls differ")
+    res = {"shape": [n, c.k, c.d], "dtype": "bfloat16", "block_rows": bm,
+           "one_expert": one_expert, "max_abs_err": 0.0}
+    if timed:
+        bound, by = combine_bound(n)
+        sets = input_sets((out, dest, add), out_bytes=add.numel() * 2)
+        # A prefill chunk's call allocates 0.26 GB (the plain one ~1.3
+        # GB) of its own: fewer in a graph.
+        iters = 24 if n <= 4096 else 8
+        res.update(ms=time_ms(moe.combine, sets, iters),
+                   plain_ms=time_ms(moe.combine_reference, sets, iters),
+                   library_ms=None, bound_ms=bound, bound_by=by)
+    return res
+
+
 def phase_mla_moe_kernels() -> dict:
-    """K7 and G1 at the decode-mla cell's shapes: K7 over its 4224-long
-    cache (B 64) at the mean and last positions, G1 over a decode step's
-    64 tokens (16-row blocks) and a prefill chunk's 65,536 (128-row
-    blocks, the many-row instance on TMA and wgmma); each also small.
-    Launches: one K7 a call, one of each GEMM a call."""
+    """K7, G1 and K8 at the decode-mla cell's shapes: K7 over its
+    4224-long cache (B 64) at the mean and last positions, G1 over a
+    decode step's 64 tokens (16-row blocks) and a prefill chunk's 65,536
+    (128-row blocks, the many-row instance on TMA and wgmma), K8 over a
+    decode step's 64 tokens and a 62,400-token chunk's; each also small
+    or skewed. Launches: one K7 a call, one of each GEMM and one K8 a
+    call."""
     _native.reset_launches()
     k7 = [mla_decode_case(64, 4224, 4033, 61, True),
           mla_decode_case(64, 4224, 4223, 62, True),
@@ -1054,12 +1112,17 @@ def phase_mla_moe_kernels() -> dict:
     g1 = [grouped_gemm_case(64, 64, True),
           grouped_gemm_case(65536, 65, True),
           grouped_gemm_case(5, 66, False)]
+    k8 = [combine_case(64, 67, True),
+          combine_case(62400, 68, True),
+          combine_case(4096, 69, False, one_expert=True)]
     torch.cuda.synchronize()
     launches = _native.launches()
     require(launches["mla_decode"] >= 2 * len(k7)
             and launches["moe_gemm_up"] == launches["moe_gemm_down"]
-            >= 2 * len(g1), f"K7/G1 launches {launches}")
-    return {"k7": k7, "g1": g1}
+            >= 2 * len(g1)
+            and launches["moe_combine"] >= 2 * len(g1) + 3 * len(k8),
+            f"K7/G1/K8 launches {launches}")
+    return {"k7": k7, "g1": g1, "k8": k8}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int,
@@ -3443,13 +3506,22 @@ def main() -> int:
                            g1a["ms"], g1a["bound_ms"], g1a["bound_by"]),
             "replaces": "none: the JAX package has no experts",
             "note": "G1: ms, plain_ms and bound_ms are of the whole grouped "
-                    "SwiGLU (align, both GEMMs, the pick sum); many_rows "
+                    "SwiGLU (align, both GEMMs, K8's pick sum); many_rows "
                     "times each GEMM alone over a 65,536-token chunk",
             "cells": [{key: c[key] for key in cell_keys + ("block_rows",)}
                       for c in k7g1["g1"][:2]],
             "many_rows": {key: k7g1["g1"][1][key] for key in (
                 "up_ms", "up_bound_ms", "down_ms", "down_bound_ms",
                 "gemms_ms", "gemms_bound_ms", "gemms_share_of_bound")}})
+    k8a = k7g1["k8"][0]
+    kernels.append({
+        **kernel_entry("moe_combine", "", by_path, k8a, k8a["max_abs_err"],
+                       k8a["ms"], k8a["bound_ms"], k8a["bound_by"]),
+        "replaces": "none: the JAX package has no experts",
+        "note": "K8: plain_ms is the torch combine it replaced (gathers, "
+                "f32 widenings and adds, the shared add), bitwise equal",
+        "cells": [{key: c[key] for key in cell_keys + ("block_rows",)}
+                  for c in k7g1["k8"][:2]]})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

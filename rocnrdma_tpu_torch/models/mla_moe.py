@@ -362,9 +362,9 @@ class MoE(nn.Module):
             x = g.reshape(-1, cfg.d_model)
             ids, wts = route(x, self.router, self.router_bias, cfg.top_k,
                              cfg.routed_scale)
-            routed = grouped_swiglu(x, ids, wts, self.w_gate, self.w_up,
-                                    self.w_down)
-            return (routed + self.shared(x)).view(g.shape)
+            return grouped_swiglu(x, ids, wts, self.w_gate, self.w_up,
+                                  self.w_down, add=self.shared(x)
+                                  ).view(g.shape)
 
 
 class Block(nn.Module):

@@ -25,6 +25,8 @@ device functions when they split the keys, and count as one launch.
 ``moe_gemm_up`` and ``moe_gemm_down`` (G1, the expert layer's grouped
 GEMMs, ``ops/moe.py``) share the headers ``csrc/moe_gemm.cuh`` (their
 few-row instance) and ``csrc/moe_gemm_tc.cuh`` (their many-row one).
+``moe_combine`` (K8) sums each token's picked rows of G1's output and
+adds the shared experts'.
 
 Route queries: the three attention kernels, ``flash_fwd`` (K3),
 ``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
@@ -93,6 +95,7 @@ SIGNATURES = {
     "moe_gemm_up": ("moe_gemm_up", [_P] * 6 + [_I] * 7 + [_L] * 4 + [_P]),
     "moe_gemm_down": ("moe_gemm_down", [_P] * 5 + [_I] * 5 + [_L] * 4
                       + [_P]),
+    "moe_combine": ("moe_combine", [_P] * 4 + [_I] * 3 + [_L, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 # K6's device functions (``__global__``), by the names their symbols
@@ -106,6 +109,9 @@ MLA_DECODE_FUNCTIONS = ("mla_decode_split", "mla_decode_combine")
 MOE_GEMM_FUNCTIONS = ("moe_gemm_up_kernel", "moe_gemm_down_kernel")
 MOE_GEMM_MANY_FUNCTIONS = ("moe_gemm_up_tc_kernel",
                            "moe_gemm_down_tc_kernel")
+# K8's device function (a template instance a pick count), named apart
+# from K1-K7's and G1's in the same way.
+MOE_COMBINE_FUNCTION = "moe_combine_kernel"
 # Launch counters: one a kernel, and the launches of G1's many-row
 # instance.
 COUNTERS = KERNELS + ("moe_gemm_many",)

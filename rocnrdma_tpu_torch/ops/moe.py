@@ -1,11 +1,12 @@
-"""The expert layer's routing and its grouped SwiGLU: two hand-written
-CUDA kernels (the grouped GEMMs) and their plain version.
+"""The expert layer's routing and its grouped SwiGLU: three hand-written
+CUDA kernels (the grouped GEMMs and the combine) and their plain version.
 
 No Pallas kernel stands behind them: the JAX package has no experts.
 :func:`route` is DeepSeek-V3's ``noaux_tc`` selection with one group:
 sigmoid scores in f32, the ``top_k`` of score + correction bias picked,
 the picked scores normalised and scaled. :func:`grouped_swiglu` computes
-every pick, none dropped: ``Σ_j w_j · SwiGLU_{e_j}(x)`` per token.
+every pick, none dropped: ``Σ_j w_j · SwiGLU_{e_j}(x)`` per token, and
+adds the shared experts' output where the caller gives it.
 
 On the card, with no host synchronisation (so the decode step captures
 as a CUDA graph):
@@ -20,8 +21,11 @@ as a CUDA graph):
 3. ``moe_gemm_down`` (``csrc/moe_gemm_down.cu``) multiplies those rows by
    the expert's down projection and scales each row by its routing
    weight (f32, rounded once to the model dtype);
-4. each token sums its ``top_k`` rows in f32, in pick order, rounded
-   once.
+4. ``moe_combine`` (K8, ``csrc/moe_combine.cu``, :func:`combine`) sums
+   each token's ``top_k`` rows in f32, in pick order, rounds once, and
+   adds the shared experts' row as torch adds two bf16 tensors: one pass
+   and one launch, bitwise :func:`combine_reference`'s gathers and f32
+   adds.
 
 Bound on H100: in a decode step (64 tokens, 6 picks, ~6 rows an expert)
 bytes, every expert's weights read once; in a prefill chunk (~6,000 rows
@@ -37,7 +41,7 @@ so does a shape or dtype the kernels do not take (there is no fallback).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -45,7 +49,8 @@ import torch.nn.functional as F
 from . import _native
 
 __all__ = ["route", "align", "grouped_swiglu", "grouped_swiglu_reference",
-           "block_rows", "gemm_up", "gemm_down"]
+           "block_rows", "gemm_up", "gemm_down", "combine",
+           "combine_reference"]
 
 
 def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
@@ -63,13 +68,14 @@ def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
 
 def grouped_swiglu_reference(x: torch.Tensor, ids: torch.Tensor,
                              wts: torch.Tensor, w_gate: torch.Tensor,
-                             w_up: torch.Tensor,
-                             w_down: torch.Tensor) -> torch.Tensor:
+                             w_up: torch.Tensor, w_down: torch.Tensor,
+                             add: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """The plain version: a loop over the experts, each taking the
     tokens that picked it. Products in f32; ``silu(gate) · up`` rounded
     to x's dtype, each pick's weighted output rounded to x's dtype, the
     picks summed in f32 in pick order and rounded once, as the kernels
-    round."""
+    round; then ``add``, if given, added in x's dtype."""
     n, k = ids.shape
     picks = torch.zeros(n, k, x.shape[1], dtype=x.dtype, device=x.device)
     for e in range(w_gate.shape[0]):
@@ -84,7 +90,8 @@ def grouped_swiglu_reference(x: torch.Tensor, ids: torch.Tensor,
     acc = picks[:, 0].float()
     for j in range(1, k):
         acc = acc + picks[:, j].float()
-    return acc.to(x.dtype)
+    routed = acc.to(x.dtype)
+    return routed if add is None else routed + add
 
 
 # Rows a block of the kernels holds, for few rows an expert (a decode
@@ -96,6 +103,9 @@ FEW_ROWS, MANY_ROWS = 16, 128
 # many-row down kernel's 256 columns), the expert width f of 128 (its up
 # kernel's 128 gate and 128 up columns).
 D_MULTIPLE, F_MULTIPLE = 256, 128
+# The picks a token the combine takes (``csrc/moe_combine.cu``'s
+# ``kMaxPicks``: one instance for each count).
+MAX_PICKS = 8
 
 
 def block_rows(rows: int, n_experts: int) -> int:
@@ -134,7 +144,7 @@ def align(ids: torch.Tensor, n_experts: int, bm: int):
     return dest.view(ids.shape), row_slot, block_expert.to(torch.int32)
 
 
-def _check(x, ids, wts, w_gate, w_up, w_down) -> None:
+def _check(x, ids, wts, w_gate, w_up, w_down, add=None) -> None:
     e, d, f = w_gate.shape
     if x.dim() != 2 or x.shape[1] != d:
         raise ValueError(f"x {tuple(x.shape)} does not match the experts' "
@@ -150,6 +160,13 @@ def _check(x, ids, wts, w_gate, w_up, w_down) -> None:
             w.dtype != x.dtype for w in (w_gate, w_up, w_down)):
         raise TypeError(f"grouped GEMM kernels take bfloat16, got {x.dtype} "
                         f"and {w_gate.dtype}")
+    if add is not None and (add.shape != x.shape or add.dtype != x.dtype
+                            or add.device != x.device):
+        raise ValueError(f"add {tuple(add.shape)} {add.dtype} does not "
+                         f"match x {tuple(x.shape)} {x.dtype}")
+    if ids.shape[1] > MAX_PICKS:
+        raise ValueError(f"the combine takes at most {MAX_PICKS} picks a "
+                         f"token, got {ids.shape[1]}")
     if d % D_MULTIPLE or f % F_MULTIPLE:
         raise ValueError(f"grouped GEMM kernels take a model width that is "
                          f"a multiple of {D_MULTIPLE} and an expert width "
@@ -202,7 +219,41 @@ def gemm_down(h, block_expert, row_w, w_down, out) -> None:
     _native.check("moe_gemm_down", rc)
 
 
-def _launch(x, ids, wts, w_gate, w_up, w_down) -> torch.Tensor:
+def combine_reference(out: torch.Tensor, dest: torch.Tensor,
+                      add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain combine: each token's rows ``out[dest[t, j]]`` gathered,
+    widened to f32 and summed in pick order, rounded once to out's dtype;
+    then ``add``, if given, added in out's dtype."""
+    acc = out.index_select(0, dest[:, 0]).float()
+    for j in range(1, dest.shape[1]):
+        acc += out.index_select(0, dest[:, j]).float()
+    routed = acc.to(out.dtype)
+    return routed if add is None else routed + add
+
+
+def combine(out: torch.Tensor, dest: torch.Tensor,
+            add: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8 over the down GEMM's rows ``out`` (cap, d) and :func:`align`'s
+    ``dest`` (N, k): (N, d), bitwise :func:`combine_reference`. One launch
+    of ``moe_combine`` on CUDA tensors; CPU tensors run the plain
+    version."""
+    if _native.device_type(out, "moe combine") == "cpu":
+        return combine_reference(out, dest, add)
+    n, k = dest.shape
+    d = out.shape[1]
+    if add is not None:
+        add = add.contiguous()
+    res = torch.empty((n, d), dtype=out.dtype, device=out.device)
+    _native.count("moe_combine")
+    rc = _native.library("moe_combine").moe_combine(
+        out.data_ptr(), dest.contiguous().data_ptr(),
+        None if add is None else add.data_ptr(), res.data_ptr(), n, k, d,
+        out.stride(0), _native.stream_handle(out.device))
+    _native.check("moe_combine", rc)
+    return res
+
+
+def _launch(x, ids, wts, w_gate, w_up, w_down, add) -> torch.Tensor:
     n, k = ids.shape
     e, d, f = w_gate.shape
     dest, row_slot, block_expert = align(ids, e, block_rows(n * k, e))
@@ -213,25 +264,26 @@ def _launch(x, ids, wts, w_gate, w_up, w_down) -> torch.Tensor:
     out = torch.empty((cap, d), dtype=x.dtype, device=x.device)
     gemm_up(x, row_slot, block_expert, k, w_gate, w_up, h)
     gemm_down(h, block_expert, row_w, w_down, out)
-    acc = out.index_select(0, dest[:, 0]).float()
-    for j in range(1, k):
-        acc += out.index_select(0, dest[:, j]).float()
-    return acc.to(x.dtype)
+    return combine(out, dest, add)
 
 
 def grouped_swiglu(x: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
                    w_gate: torch.Tensor, w_up: torch.Tensor,
-                   w_down: torch.Tensor) -> torch.Tensor:
+                   w_down: torch.Tensor,
+                   add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``Σ_j wts[:, j] · SwiGLU_{ids[:, j]}(x)`` for x (N, d), the picks
     ``ids`` (N, k) and their f32 weights ``wts`` (N, k), over the experts'
-    stacked weights w_gate, w_up (E, d, f) and w_down (E, f, d). Returns
-    (N, d) in x's dtype.
+    stacked weights w_gate, w_up (E, d, f) and w_down (E, f, d), plus
+    ``add`` (N, d) if given (the shared experts' output), added after the
+    sum's rounding. Returns (N, d) in x's dtype.
 
-    CUDA tensors: :func:`align` and the two CUDA kernels. CPU tensors:
+    CUDA tensors: :func:`align` and the three CUDA kernels. CPU tensors:
     :func:`grouped_swiglu_reference`."""
     if _native.device_type(x, "grouped swiglu") == "cpu":
-        return grouped_swiglu_reference(x, ids, wts, w_gate, w_up, w_down)
-    _check(x, ids, wts, w_gate, w_up, w_down)
+        return grouped_swiglu_reference(x, ids, wts, w_gate, w_up, w_down,
+                                        add)
+    _check(x, ids, wts, w_gate, w_up, w_down, add)
     if x.shape[0] == 0:
-        return torch.zeros_like(x)
-    return _launch(x.contiguous(), ids, wts, w_gate, w_up, w_down)
+        routed = torch.zeros_like(x)
+        return routed if add is None else routed + add
+    return _launch(x.contiguous(), ids, wts, w_gate, w_up, w_down, add)

@@ -2,9 +2,9 @@
 PERF.md §6's kernel table: each entry's and each of its cells'
 ``bound_ms`` and ``bound_by``. K1-K5 and K7 take them from the
 benchmark's yardstick (``benchmark/roofline.py``,
-``benchmark/roofline_mla.py``), as G1's GEMMs alone do; K6 and G1's
-whole call, which the benchmark does not bound, are written on its
-``bound_s``. The expected values are the table's, to the last bit, so a
+``benchmark/roofline_mla.py``), as G1's GEMMs alone do; K6, G1's
+whole call and K8, which the benchmark does not bound, are written on
+its ``bound_s``. The expected values are the table's, to the last bit, so a
 change to either side shows here before the table and the benchmark's
 ``kernels_roofline.*`` drift apart.
 """
@@ -84,6 +84,10 @@ CASES = {
         (partial(cs.grouped_swiglu_bound, 65536), (6.878896053451972, OPS)),
         (partial(cs.grouped_gemm_bounds, 65536),
          (4.585930702301314, 2.292965351150657))],
+    # A decode step's 64 tokens and a 62,400-token prefill chunk's.
+    "K8 moe_combine": [
+        (partial(cs.combine_bound, 64), (0.0006269325373134329, BYTES)),
+        (partial(cs.combine_bound, 62400), (0.6112592238805971, BYTES))],
 }
 
 

@@ -275,6 +275,25 @@ def test_experts_are_dropless(same):
 
 
 @pytest.mark.parametrize("same", [False, True])
+def test_reference_adds_the_shared_row_after_rounding(same):
+    """``add`` is the shared experts' row, added in x's dtype after the
+    picks' sum is rounded: bitwise the sum, then ``+ add``."""
+    n, k, e, d, f = 24, 3, 8, 16, 12
+    g = torch.Generator().manual_seed(10)
+    x = torch.randn(n, d, generator=g).bfloat16()
+    ids = (torch.tensor([[2, 5, 7]]).expand(n, k) if same
+           else torch.stack([torch.randperm(e, generator=g)[:k]
+                             for _ in range(n)]))
+    wts = torch.rand(n, k, generator=g)
+    ws = [w.bfloat16() for w in _expert_weights(e, d, f)]
+    s = torch.randn(n, d, generator=g).bfloat16()
+    got = moe.grouped_swiglu_reference(x, ids, wts, *ws, add=s)
+    assert torch.equal(got, moe.grouped_swiglu_reference(x, ids, wts, *ws)
+                       + s)
+    assert torch.equal(moe.grouped_swiglu(x, ids, wts, *ws, add=s), got)
+
+
+@pytest.mark.parametrize("same", [False, True])
 @pytest.mark.parametrize("bm", [4, 16])
 def test_align_lays_every_pick_out_by_expert(same, bm):
     """The device-side layout the kernels read, run here on CPU tensors:
@@ -301,6 +320,26 @@ def test_align_lays_every_pick_out_by_expert(same, bm):
 def test_model_uses_the_dispatching_wrappers():
     assert mla_moe.mla_decode is mld.mla_decode
     assert mla_moe.grouped_swiglu is moe.grouped_swiglu
+
+
+def test_registry_lists_k8_and_names_it_apart():
+    """K8's C signature, its launch counter, and its device function
+    named apart from the symbols the benchmark matches: no K1-K5 name
+    (``roofline.kernel_of``) and not G1's (``moe_roofline`` divides by
+    the time of every symbol holding ``moe_gemm``)."""
+    P, I, L = _native._P, _native._I, _native._L
+    assert _native.SIGNATURES["moe_combine"] == (
+        "moe_combine", [P] * 4 + [I] * 3 + [L, P])
+    assert "moe_combine" in _native.launches()
+    fn = _native.MOE_COMBINE_FUNCTION
+    src = (_native.CSRC / "moe_combine.cu").read_text()
+    assert f"\n{fn}(" in src
+    assert f"constexpr int kMaxPicks = {moe.MAX_PICKS};" in src
+    from benchmark import roofline, roofline_mla
+
+    assert roofline.kernel_of(fn) is None
+    assert roofline_mla.MOE_GEMM not in fn
+    assert roofline_mla.MLA_DECODE not in fn
 
 
 def test_registry_lists_k7_and_the_grouped_gemms():
@@ -380,7 +419,11 @@ def test_grouped_gemm_checks_refuse_what_the_kernels_do_not_take():
                 # the many-row tiles: d a multiple of 256, f of 128
                 widths(384, 128), widths(256, 192), widths(2048, 1344),
                 (x, ids[:, :1], wts, *ws),
-                (x, ids, wts, ws[0], ws[1], ws[0])):
+                (x, ids, wts, ws[0], ws[1], ws[0]),
+                # the shared row: x's shape and dtype; at most 8 picks
+                (x, ids, wts, *ws, x[:2]), (x, ids, wts, *ws, x.float()),
+                (x, torch.zeros(4, 9, dtype=torch.int64), torch.ones(4, 9),
+                 *ws)):
         with pytest.raises((ValueError, TypeError)):
             moe._check(*bad)
 
@@ -543,6 +586,51 @@ def test_grouped_gemms_match_the_per_expert_loop(cuda, case):
     torch.testing.assert_close(got, want, rtol=2 ** -6, atol=2 ** -8 * scale)
 
 
+K8_CASES = {
+    # tokens, rows a block: the decode step's 64 (16-row blocks), a
+    # 62,400-token prefill chunk (128-row blocks), each also with every
+    # pick on one expert.
+    "decode_64": (64, 16, False),
+    "chunk_62400": (62400, 128, False),
+    "decode_64_one_expert": (64, 16, True),
+    "chunk_62400_one_expert": (62400, 128, True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(K8_CASES))
+def test_k8_equals_the_torch_combine_bitwise(cuda, case):
+    """K8 over ``align``'s layout of seeded picks (6 of 64 experts, d
+    2048) against the torch combine it replaced: gathers, f32 adds in
+    pick order, one rounding, then ``+ shared``. Bitwise, with and
+    without the shared row, and bitwise again on a second call; one
+    launch a call."""
+    n, bm, one_expert = K8_CASES[case]
+    e, d, k = 64, 2048, 6
+    assert moe.block_rows(n * k, e) == bm
+    g = torch.Generator(device=cuda).manual_seed(n + 7 * one_expert)
+    ids = torch.rand(n, e, generator=g, device=cuda).argsort(1)[:, :k]
+    if one_expert:
+        ids[:] = 5
+    dest, row_slot, _ = moe.align(ids, e, bm)
+    out = torch.randn(row_slot.numel(), d, generator=g,
+                      device=cuda).bfloat16()
+    shared = torch.randn(n, d, generator=g, device=cuda).bfloat16()
+    _native.reset_launches()
+    got = moe.combine(out, dest, shared)
+    again = moe.combine(out, dest, shared)
+    alone = moe.combine(out, dest)
+    torch.cuda.synchronize()
+    assert _native.launches()["moe_combine"] == 3
+    acc = out.index_select(0, dest[:, 0]).float()
+    for j in range(1, k):
+        acc += out.index_select(0, dest[:, j]).float()
+    routed = acc.to(torch.bfloat16)
+    assert torch.equal(alone, routed)
+    assert torch.equal(got, routed + shared)
+    assert torch.equal(again, got)
+
+
 # A bf16 model K7 takes (16 heads of 512 + 64), small elsewhere.
 SMALL = dict(TINY, name="mla-small", hidden_size=256, num_attention_heads=16,
              num_key_value_heads=16, kv_lora_rank=512, qk_nope_head_dim=128,
@@ -556,8 +644,8 @@ SMALL = dict(TINY, name="mla-small", hidden_size=256, num_attention_heads=16,
 def test_graph_replay_equals_uncaptured_step_and_counts(cuda):
     """A ``DecodeLoop`` whose step is a captured graph against the same
     step uncaptured: bitwise the same tokens and latent caches. Each
-    replayed step counts K7 once a layer and each grouped GEMM once an
-    expert layer."""
+    replayed step counts K7 once a layer and each grouped GEMM and K8
+    once an expert layer."""
     model = _model(SMALL, device=cuda)
     prompt = torch.randint(0, 512, (3, 70), device=cuda,
                            generator=torch.Generator(cuda).manual_seed(4))
@@ -578,6 +666,7 @@ def test_graph_replay_equals_uncaptured_step_and_counts(cuda):
         counts = _native.launches()
         assert counts["mla_decode"] == 3 * i
         assert counts["moe_gemm_up"] == counts["moe_gemm_down"] == 2 * i
+        assert counts["moe_combine"] == 2 * i
     assert graphed.step.graph is not None
 
 

@@ -138,7 +138,8 @@ def test_cpu_wrappers_launch_no_kernel():
                                   "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
                                   "flash_bwd_dkv": 0, "decode_attn": 0,
                                   "mla_decode": 0, "moe_gemm_up": 0,
-                                  "moe_gemm_down": 0, "moe_gemm_many": 0}
+                                  "moe_gemm_down": 0, "moe_gemm_many": 0,
+                                  "moe_combine": 0}
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 102),
