@@ -220,6 +220,7 @@ import torch
 import torch.nn.functional as F
 
 from benchmark import roofline as rl
+from benchmark import roofline_kimi as rlk
 from benchmark import roofline_mla as rlm
 from rocnrdma_tpu_torch.collectives.staging import staging
 from rocnrdma_tpu_torch.collectives.torch_shim import CrossSliceAllReduce
@@ -236,6 +237,7 @@ from rocnrdma_tpu_torch.ops.attention import (
     flash_attention_bwd_reference, flash_attention_lse,
     flash_attention_lse_reference, flash_attention_shard_grads,
     flash_bwd_dkv, flash_bwd_dq, kernel_route)
+from rocnrdma_tpu_torch.ops import kda
 from rocnrdma_tpu_torch.ops import mla_decode as mld
 from rocnrdma_tpu_torch.ops import moe
 from rocnrdma_tpu_torch.ops.decode_attention import (
@@ -257,6 +259,10 @@ L2_BYTES = 50 * 2 ** 20
 # The decode-mla cell's model: K7's and G1's shapes and bounds.
 MOONLIGHT = json.loads((REPO / "benchmark" / "configs"
                         / "moonlight-16b-a3b.json").read_text())
+# The decode-hybrid cell's model: K9's shapes and bounds, and K7's at 32
+# heads.
+KIMI = json.loads((REPO / "benchmark" / "configs"
+                   / "kimi-linear-48b-a3b.json").read_text())
 
 # Tolerances against the plain versions, with their reasons:
 # - f32 outputs: the kernel sums in another order than PyTorch's
@@ -442,13 +448,24 @@ def decode_attn_bound(b, h, kvh, d, pos, dtype) -> tuple:
     return t * 1e3, by
 
 
-def mla_decode_bound(b: int, pos: int) -> tuple:
+def mla_decode_bound(b: int, pos: int, cfg: dict = MOONLIGHT) -> tuple:
     """K7's bound in ms over the first ``pos + 1`` positions of b bf16
-    latent caches, and what bounds it."""
-    c, live = rlm.dims(MOONLIGHT), pos + 1
-    t = rlm.mla_decode_bound_s(MOONLIGHT, b, live, "bfloat16")
+    latent caches at ``cfg``'s heads (a configuration under
+    ``roofline_mla``'s names), and what bounds it."""
+    c, live = rlm.dims(cfg), pos + 1
+    t = rlm.mla_decode_bound_s(cfg, b, live, "bfloat16")
     flops = 2.0 * c.h * (2 * c.rank + c.rope) * b * live
     return t * 1e3, bound_by(t, flops, "bfloat16")
+
+
+def kda_bound(b: int, t: int) -> tuple:
+    """K9's bound in ms over b sequences of t tokens at Kimi Linear's
+    heads (the benchmark's ``roofline_kimi.kda_bound_s``), and what bounds
+    it."""
+    c = rlk.dims(KIMI)
+    s = rlk.kda_bound_s(KIMI, b, t, "bfloat16")
+    flops = rlk.KDA_OPS_PER_D2 * c.kd * c.kd * c.kh * b * t
+    return s * 1e3, bound_by(s, flops, "bfloat16")
 
 
 def grouped_swiglu_bound(n: int) -> tuple:
@@ -937,21 +954,22 @@ def phase_decode_attn() -> dict:
     return {"cases": cases}
 
 
-# The latent-attention, routed-expert model's kernels (K7, G1), which no
-# Llama path launches.
+# The latent-attention, routed-expert and KDA models' kernels and device
+# counters (K7, G1, K8, K9), which no Llama path launches.
 NOT_ON_LLAMA = {"mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0,
-                "moe_gemm_many": 0, "moe_combine": 0}
+                "moe_gemm_many": 0, "moe_combine": 0, "kda_recurrent": 0,
+                **{name: 0 for name in _native.DEVICE_COUNTERS}}
 
 
-def mla_decode_case(b, t, pos, seed, timed) -> dict:
+def mla_decode_case(b, t, pos, seed, timed, heads=mld.HEADS) -> dict:
     """K7 against its plain version over a latent cache of ``t``
-    positions (16 heads of 512 + 64, bf16) with the query at ``pos``, as
-    the graphed step calls it: error, two calls bitwise equal; timed, its
-    device ms beside its bound (the live cache rows, q and out, once:
-    bytes) and the plain version's. No library kernel takes 16 heads
-    over one shared 576-wide key."""
+    positions (16 or 32 heads of 512 + 64, bf16) with the query at
+    ``pos``, as the graphed step calls it: error, two calls bitwise equal;
+    timed, its device ms beside its bound (the live cache rows, q and
+    out, once: bytes) and the plain version's. No library kernel takes
+    16 or 32 heads over one shared 576-wide key."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q = torch.randn(b, mld.HEADS, mld.LATENT + mld.ROPE, generator=g,
+    q = torch.randn(b, heads, mld.LATENT + mld.ROPE, generator=g,
                     device="cuda").bfloat16()
     ckv = torch.randn(b, t, mld.LATENT + mld.ROPE, generator=g,
                       device="cuda").bfloat16()
@@ -968,14 +986,15 @@ def mla_decode_case(b, t, pos, seed, timed) -> dict:
     torch.cuda.synchronize()
     want = plain(q, ckv, q_pos)
     what = f"latent decode {(b, t)} pos {pos}"
-    res = {"shape": [b, mld.HEADS, t, mld.LATENT + mld.ROPE], "pos": pos,
+    res = {"shape": [b, heads, t, mld.LATENT + mld.ROPE], "pos": pos,
            "dtype": "bfloat16",
            "max_abs_err": max_err(got, want, TOL[("decode", torch.bfloat16)][0],
                                   2 ** -8 * float(want.float().abs().max()),
                                   what)}
     require(torch.equal(k7(q, ckv, q_pos), got), what + ": two calls differ")
     if timed:
-        bound, by = mla_decode_bound(b, pos)
+        bound, by = mla_decode_bound(
+            b, pos, MOONLIGHT if heads == mld.HEADS else rlk.mla_config(KIMI))
         sets = input_sets((q, ckv, q_pos), out_bytes=got.numel() * 2)
         res.update(ms=time_ms(k7, sets),
                    plain_ms=time_ms(plain, sets[:1], iters=3),
@@ -1097,14 +1116,70 @@ def combine_case(n, seed, timed, one_expert=False) -> dict:
     return res
 
 
+def kda_case(b, t, seed, timed) -> dict:
+    """K9 (``kda.kda_recurrent``: the short convolution, SiLU, the
+    l2norms and the recurrence) against its plain version
+    (``kda.kda_reference``) over b sequences of t tokens at Kimi Linear's
+    32 heads of 128, from random raw rows and a random f32 state: o's and
+    the state's errors, the raw rows left, two launches from the same
+    states bitwise equal; timed, its device ms beside its bound
+    (``kda_bound``) and the plain version's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    c = 32 * kda.DIM
+    x = torch.randn(b, t, 3 * c, generator=g, device="cuda").bfloat16()
+    w = (torch.randn(3 * c, kda.TAPS, generator=g, device="cuda") / 2
+         ).bfloat16()
+    conv = torch.randn(b, kda.TAPS - 1, 3 * c, generator=g,
+                       device="cuda").bfloat16()
+    log_a = -0.7 * torch.rand(b, t, 32, kda.DIM, generator=g, device="cuda")
+    beta = torch.rand(b, t, 32, generator=g, device="cuda")
+    s0 = 0.1 * torch.randn(b, 32, kda.DIM, kda.DIM, generator=g,
+                           device="cuda")
+    scale = kda.DIM ** -0.5
+    st, st2, plain = s0.clone(), s0.clone(), s0.clone()
+    c1, c2, cp = conv.clone(), conv.clone(), conv.clone()
+    got = kda.kda_recurrent(x, w, c1, log_a, beta, st, scale)
+    again = kda.kda_recurrent(x, w, c2, log_a, beta, st2, scale)
+    torch.cuda.synchronize()
+    what = f"KDA recurrence {(b, t)}"
+    require(torch.equal(got, again) and torch.equal(st, st2)
+            and torch.equal(c1, c2), what + ": two launches differ")
+    want = kda.kda_reference(x, w, cp, log_a, beta, plain, scale)
+    require(torch.equal(c1, cp), what + ": the raw rows left differ")
+    # o in bf16: a bf16 step of its largest magnitude; the state in f32,
+    # summed in another order (tests/test_torch_kimi_linear.py).
+    res = {"shape": [b, t, 32, kda.DIM], "dtype": "bfloat16",
+           "max_abs_err": max_err(got, want, 2 ** -7,
+                                  2 ** -8 * float(want.float().abs().max()),
+                                  what),
+           "state_max_abs_err": max_err(st, plain, 1e-4, 1e-5,
+                                        what + " state")}
+    if timed:
+        bound, by = kda_bound(b, t)
+
+        def k9(*a):
+            return kda.kda_recurrent(*a, scale)
+
+        sets = input_sets((x, w, c1, log_a, beta, st),
+                          out_bytes=got.numel() * 2)
+        res.update(ms=time_ms(k9, sets, iters=24 if t == 1 else 2),
+                   plain_ms=eager_ms(lambda: kda.kda_reference(
+                       x, w, cp.clone(), log_a, beta, plain.clone(), scale),
+                       1),
+                   library_ms=None, bound_ms=bound, bound_by=by)
+    return res
+
+
 def phase_mla_moe_kernels() -> dict:
     """K7, G1 and K8 at the decode-mla cell's shapes: K7 over its
     4224-long cache (B 64) at the mean and last positions, G1 over a
     decode step's 64 tokens (16-row blocks) and a prefill chunk's 65,536
     (128-row blocks, the many-row instance on TMA and wgmma), K8 over a
     decode step's 64 tokens and a 62,400-token chunk's; each also small
-    or skewed. Launches: one K7 a call, one of each GEMM and one K8 a
-    call."""
+    or skewed. Then the decode-hybrid cell's: K7 at 32 heads over its
+    2048-long cache (B 128), K9 at a decode step's 128 sequences of one
+    token and a prefill chunk's 40 of 1,600. Launches: one K7, one K9 a
+    call, one of each GEMM and one K8 a call."""
     _native.reset_launches()
     k7 = [mla_decode_case(64, 4224, 4033, 61, True),
           mla_decode_case(64, 4224, 4223, 62, True),
@@ -1115,14 +1190,21 @@ def phase_mla_moe_kernels() -> dict:
     k8 = [combine_case(64, 67, True),
           combine_case(62400, 68, True),
           combine_case(4096, 69, False, one_expert=True)]
+    k7_32 = [mla_decode_case(128, 2048, 1800, 70, True, heads=32),
+             mla_decode_case(128, 2048, 2047, 71, True, heads=32),
+             mla_decode_case(3, 300, 150, 72, False, heads=32)]
+    k9 = [kda_case(128, 1, 73, True), kda_case(40, 1600, 74, True),
+          kda_case(3, 37, 75, False)]
     torch.cuda.synchronize()
     launches = _native.launches()
-    require(launches["mla_decode"] >= 2 * len(k7)
+    require(launches["kda_recurrent"] >= 2 * len(k9),
+            f"K9 launches {launches}")
+    require(launches["mla_decode"] >= 2 * (len(k7) + len(k7_32))
             and launches["moe_gemm_up"] == launches["moe_gemm_down"]
             >= 2 * len(g1)
             and launches["moe_combine"] >= 2 * len(g1) + 3 * len(k8),
             f"K7/G1/K8 launches {launches}")
-    return {"k7": k7, "g1": g1, "k8": k8}
+    return {"k7": k7, "g1": g1, "k8": k8, "k7_32": k7_32, "k9": k9}
 
 
 def expected_launches(cfg, forward_steps: int, prefills: int,
@@ -3498,7 +3580,7 @@ def main() -> int:
                        k7a["ms"], k7a["bound_ms"], k7a["bound_by"]),
         "replaces": "none: the JAX package has no latent attention",
         "cells": [{key: c[key] for key in cell_keys + ("pos",)}
-                  for c in k7g1["k7"][:2]]})
+                  for c in k7g1["k7"][:2] + k7g1["k7_32"][:2]]})
     g1a = k7g1["g1"][0]
     for name in ("moe_gemm_up", "moe_gemm_down"):
         kernels.append({
@@ -3522,6 +3604,15 @@ def main() -> int:
                 "f32 widenings and adds, the shared add), bitwise equal",
         "cells": [{key: c[key] for key in cell_keys + ("block_rows",)}
                   for c in k7g1["k8"][:2]]})
+    k9a = k7g1["k9"][0]
+    kernels.append({
+        **kernel_entry("kda_recurrent", "", by_path, k9a, k9a["max_abs_err"],
+                       k9a["ms"], k9a["bound_ms"], k9a["bound_by"]),
+        "replaces": "none: the JAX package has no linear attention",
+        "note": "K9: plain_ms is its plain version in torch (the "
+                "convolution, the l2norms and the per-token loop, eager)",
+        "cells": [{key: c[key] for key in cell_keys + ("state_max_abs_err",)}
+                  for c in k7g1["k9"][:2]]})
     emit({"kernels": kernels})
     print(nvidia_smi("name,power.limit"), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,7 @@
 // a decode step over the bf16 latent cache, one query position a sequence.
 //
 // Replaces no Pallas kernel: the JAX package has no latent attention. It
-// computes, for each sequence b and each of its 16 query heads h,
+// computes, for each sequence b and each of its 16 or 32 query heads h,
 //   score_t = (q[b, h] . ckv[b, t]) / sqrt(nope + rope)   for t <= pos,
 //   o[b, h] = softmax_t(score) . ckv[b, t, :512]
 // where q is [q_lat | q_pe] (q_lat = W_UK . q_nope, the query absorbed
@@ -10,10 +10,11 @@
 // are also the value, then 64 roped key columns that every head shares.
 // The plain version is ops/mla_decode.py:mla_decode_reference.
 //
-// Contract: q (B, 16, 576) and ckv (B, T, 576) bf16, read through their
-// strides (the last one 1, the others multiples of 8 elements, the bases
-// 16-byte aligned); q_pos (1,) int64, the query's position, read on the
-// device; out (B, 16, 512) contiguous bf16. Key t weighs iff t <= pos.
+// Contract: q (B, H, 576) and ckv (B, T, 576) bf16, H 16 or 32, read
+// through their strides (the last one 1, the others multiples of 8
+// elements, the bases 16-byte aligned); q_pos (1,) int64, the query's
+// position, read on the device; out (B, H, 512) contiguous bf16. Key t
+// weighs iff t <= pos.
 //
 // Bound on H100: bytes. A live position costs 16 * 2 * (576 + 512) flops
 // against its 1,152-byte row: 30 flops a byte, under the bf16 tensor
@@ -23,12 +24,16 @@
 // B 64, pos 4033).
 //
 // Design against that bound (FlashMLA's split, on mma.sync):
-//   - Grid (B, splits): a block holds one sequence's 16 heads, the 16
-//     rows of one mma tile, so it reads each cache row once for all of
-//     them. Splits cut the keys into equal ranges so that a small B still
-//     fills the card (ops/mla_decode.py:mla_decode_splits), each block
-//     stopping at pos + 1: one captured graph (T the whole cache) reads
-//     only the prefix in use at each replay.
+//   - Grid (B * H / 16, splits): a block holds 16 heads of one sequence,
+//     the 16 rows of one mma tile, so it reads each cache row once for all
+//     of them. At 32 heads a sequence's two head groups are neighbouring
+//     blocks (x = 2b, 2b + 1), which run together and read the same rows,
+//     so the second reads them from the L2 and HBM gives each live row
+//     about once a sequence. Splits cut the keys into equal ranges so that
+//     a small B still fills the card (ops/mla_decode.py:
+//     mla_decode_splits), each block stopping at pos + 1: one captured
+//     graph (T the whole cache) reads only the prefix in use at each
+//     replay.
 //   - Tiles of 32 keys travel by cp.async into two stages of shared
 //     memory (rows padded by 16 bytes, so ldmatrix reads them without
 //     bank conflicts), the next tile's copies running during this one's
@@ -47,8 +52,8 @@
 //     bits.
 //
 // C interface (bound with ctypes): pointers and the stream are void*,
-// strides are int64 elements; part_o (B * 16, splits, 512) and part_ml
-// (B * 16, splits, 2) are f32 scratch that the wrapper allocates (unused
+// strides are int64 elements; part_o (B * H, splits, 512) and part_ml
+// (B * H, splits, 2) are f32 scratch that the wrapper allocates (unused
 // with one split); mla_decode returns cudaGetLastError().
 
 #include <cuda_bf16.h>
@@ -58,7 +63,7 @@
 
 namespace {
 
-constexpr int kHeads = 16;               // query heads: an mma tile's rows
+constexpr int kHeads = 16;               // query heads a block: an mma tile's rows
 constexpr int kLat = 512;                // latent (and value) columns
 constexpr int kRow = 576;                // a cache row: latent + rope
 constexpr int kPad = kRow + 8;           // shared row stride (elements)
@@ -139,8 +144,9 @@ mla_decode_split(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ ckv,
                  const int64_t* __restrict__ q_pos,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ part_o,
-                 float* __restrict__ part_ml, int t, int kps, long long qsb,
-                 long long qsh, long long csb, long long cst, float scale2) {
+                 float* __restrict__ part_ml, int t, int kps, int groups,
+                 long long qsb, long long qsh, long long csb, long long cst,
+                 float scale2) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* skv = reinterpret_cast<__nv_bfloat16*>(smem + kSmemQ);
@@ -153,7 +159,8 @@ mla_decode_split(const __nv_bfloat16* __restrict__ q,
   float* sl = sm + kHeads;
   const float ninf = -INFINITY;
 
-  const int b = blockIdx.x, split = blockIdx.y, nsplit = gridDim.y;
+  const int b = blockIdx.x / groups, grp = blockIdx.x % groups;
+  const int split = blockIdx.y, nsplit = gridDim.y;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, tq = lane % 4;
   const long long pos = q_pos[0];
@@ -161,7 +168,7 @@ mla_decode_split(const __nv_bfloat16* __restrict__ q,
   const int k0 = split * kps;
   const int k1 = k0 + kps < live ? k0 + kps : live;
 
-  const __nv_bfloat16* qb = q + b * qsb;
+  const __nv_bfloat16* qb = q + b * qsb + grp * kHeads * qsh;
   for (int i = tid; i < kHeads * kChunks; i += kThreads) {
     const int r = i / kChunks, c = i % kChunks;
     mla_copy(sq + r * kPad + c * 8, qb + r * qsh + c * 8, true);
@@ -267,7 +274,7 @@ mla_decode_split(const __nv_bfloat16* __restrict__ q,
   }
   __syncthreads();
 
-  const long long row0 = static_cast<long long>(b) * kHeads;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kHeads;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int h = g + 8 * half;
@@ -327,10 +334,13 @@ bool aligned(const void* p) {
 
 extern "C" int mla_decode(const void* q, const void* ckv, const void* q_pos,
                           void* out, void* part_o, void* part_ml, int b,
-                          int t, int splits, long long qsb, long long qsh,
+                          int heads, int t, int splits, long long qsb,
+                          long long qsh,
                           long long csb, long long cst, float scale2,
                           void* stream) {
-  bool ok = b > 0 && t > 0 && splits > 0 && splits <= 65535 && aligned(q) &&
+  const int groups = heads / kHeads;
+  bool ok = b > 0 && (heads == kHeads || heads == 2 * kHeads) && t > 0 &&
+            splits > 0 && splits <= 65535 && aligned(q) &&
             aligned(ckv) && aligned(out) &&
             (splits == 1 || (part_o != nullptr && part_ml != nullptr));
   const long long strides[4] = {qsb, qsh, csb, cst};
@@ -346,14 +356,14 @@ extern "C" int mla_decode(const void* q, const void* ckv, const void* q_pos,
   int kps = (t + splits - 1) / splits;
   kps = (kps + kKeys - 1) / kKeys * kKeys;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  mla_decode_split<<<dim3(b, splits), kThreads, kSmem, st>>>(
+  mla_decode_split<<<dim3(b * groups, splits), kThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(ckv),
       static_cast<const int64_t*>(q_pos), static_cast<__nv_bfloat16*>(out),
-      static_cast<float*>(part_o), static_cast<float*>(part_ml), t, kps, qsb,
-      qsh, csb, cst, scale2);
+      static_cast<float*>(part_o), static_cast<float*>(part_ml), t, kps,
+      groups, qsb, qsh, csb, cst, scale2);
   if (splits > 1) {
-    mla_decode_combine<<<b * kHeads, 128, 0, st>>>(
+    mla_decode_combine<<<b * heads, 128, 0, st>>>(
         static_cast<const float*>(part_o), static_cast<const float*>(part_ml),
         static_cast<__nv_bfloat16*>(out), splits);
   }

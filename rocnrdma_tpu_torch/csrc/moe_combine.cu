@@ -11,7 +11,9 @@
 //
 // Contract: out (rows, d) bf16, the down GEMM's padded rows, its rows
 // `out_stride` elements apart; dest (n, k) int64 contiguous, each pick's
-// row of out (ops/moe.py:align); add (n, d) bf16 contiguous or null;
+// row of out (ops/moe.py:align), or -1 for a pick of an expert another
+// card holds, which reads as a row of zeros (+0.0 in f32, so it adds
+// nothing); add (n, d) bf16 contiguous or null;
 // res (n, d) bf16 contiguous. For each token t and column c:
 //   acc = f32(out[dest[t, 0], c]); acc += f32(out[dest[t, j], c]), j = 1..k-1
 //   r = bf16(acc)                             (round to nearest even, once)
@@ -82,7 +84,9 @@ moe_combine_kernel(const __nv_bfloat16* __restrict__ out,
   uint4 v[K];
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    v[j] = *reinterpret_cast<const uint4*>(out + rows[j] * out_stride + col);
+    v[j] = rows[j] >= 0 ? *reinterpret_cast<const uint4*>(
+                              out + rows[j] * out_stride + col)
+                        : make_uint4(0, 0, 0, 0);
   }
   uint4 s = make_uint4(0, 0, 0, 0);
   if (add != nullptr) {

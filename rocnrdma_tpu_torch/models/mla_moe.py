@@ -12,13 +12,17 @@ Layer ℓ on x (B, S, d):
 - attention input ``h = RMSNorm(x)``; ``q = h·W_q`` (S, H, nope + rope)
   split into ``q_nope`` and ``q_pe``; ``[c̃, k_pe] = h·W_kva`` and
   ``c = RMSNorm_kv(c̃)`` (the latent, ``kv_lora_rank`` wide);
-- ``q_pe`` and ``k_pe`` roped split-half at absolute positions, ``k_pe``
-  one key that every head shares;
+- ``q_pe`` and ``k_pe`` roped split-half at absolute positions (not
+  roped where ``mla_use_nope``, as Kimi Linear sets it), ``k_pe`` one key
+  that every head shares;
 - ``[k_nope, v] = c·W_kvb`` per head; ``score = (q_nope·k_nope +
   q_pe·k_pe) / sqrt(nope + rope)``, causal softmax, ``o = P·v``,
   ``y = x + o·W_o``;
 - the first ``first_dense`` layers add ``SwiGLU_d_ff(RMSNorm(y))``, the
-  others the expert layer :class:`MoE` on ``g = RMSNorm(y)``.
+  others the expert layer :class:`MoE` on ``g = RMSNorm(y)``, which routes
+  over ``n_routed`` experts and computes the picks of the ``n_experts`` it
+  holds from ``first_expert`` on (all of them unless an expert-parallel
+  deployment divides them between cards).
 
 Head: a final RMSNorm and the untied head, f32 logits.
 
@@ -70,7 +74,7 @@ import torch.nn.functional as F
 
 from .. import DeviceLike, resolve_device
 from ..ops.mla_decode import mla_decode
-from ..ops.moe import grouped_swiglu, route
+from ..ops.moe import count_held, grouped_swiglu, route
 from ..ops.rmsnorm import rmsnorm
 from ..utils.trace import trace
 from .llama import apply_rope, rope_freqs, swiglu
@@ -107,6 +111,17 @@ class MlaMoeConfig:
     rope_theta: float = 50000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # No rope on q_pe and k_pe (Kimi Linear's ``mla_use_nope``).
+    mla_use_nope: bool = False
+    # The experts held here, n_experts from first_expert on, of the
+    # router's router_experts (0: the router's width is n_experts).
+    first_expert: int = 0
+    router_experts: int = 0
+
+    @property
+    def n_routed(self) -> int:
+        """The router's width: the experts a token picks among."""
+        return self.router_experts or self.n_experts
 
     @property
     def qk_head_dim(self) -> int:
@@ -192,8 +207,8 @@ def param_shapes(cfg: MlaMoeConfig) -> Dict[str, tuple]:
                         p + "mlp.w_down": (cfg.d_ff, d)})
         else:
             f, fs = cfg.moe_d_ff, cfg.moe_d_ff * cfg.n_shared
-            out.update({p + "moe.router": (d, e),
-                        p + "moe.router_bias": (e,),
+            out.update({p + "moe.router": (d, cfg.n_routed),
+                        p + "moe.router_bias": (cfg.n_routed,),
                         p + "moe.w_gate": (e, d, f),
                         p + "moe.w_up": (e, d, f),
                         p + "moe.w_down": (e, f, d),
@@ -249,10 +264,11 @@ class MlaAttention(nn.Module):
         self.kv_norm = nn.Module()
         self.kv_norm.weight = _norm(cfg.kv_lora_rank, device)
 
-    def _project(self, h: torch.Tensor, freqs: torch.Tensor):
+    def _project(self, h: torch.Tensor, freqs: Optional[torch.Tensor]):
         """(B, S, d) normed input → q_nope (B, H, S, nope), roped q_pe
         (B, H, S, rope), the latent c (B, S, rank) and the roped k_pe
-        (B, S, rope); ``freqs`` at h's positions."""
+        (B, S, rope); ``freqs`` at h's positions, None where
+        ``mla_use_nope`` (q_pe and k_pe as projected)."""
         cfg = self.cfg
         b, s, _ = h.shape
         q = (h @ self.wq).view(b, s, cfg.n_heads, cfg.qk_head_dim)
@@ -261,6 +277,8 @@ class MlaAttention(nn.Module):
         c, k_pe = (h @ self.wkva).split([cfg.kv_lora_rank, cfg.qk_rope_dim],
                                         dim=-1)
         c = rmsnorm(c, self.kv_norm.weight, cfg.norm_eps)
+        if cfg.mla_use_nope:
+            return q_nope, q_pe, c, k_pe
         return (q_nope, apply_rope(q_pe, freqs), c,
                 apply_rope(k_pe[:, None], freqs)[:, 0])
 
@@ -295,14 +313,17 @@ class MlaAttention(nn.Module):
         o = torch.bmm(o_lat.transpose(0, 1), w_uv.transpose(0, 1))
         return o.transpose(0, 1).reshape(b, 1, h * cfg.v_head_dim)
 
-    def forward(self, h: torch.Tensor, freqs: torch.Tensor,
+    def forward(self, h: torch.Tensor, freqs: Optional[torch.Tensor],
                 cache: Optional[Dict[str, torch.Tensor]] = None,
                 pos: Union[int, torch.Tensor] = 0) -> torch.Tensor:
         """(B, S, d) normed input → the attention's contribution (B, S,
-        d), writing the latent and k_pe into ``cache`` in place."""
+        d), writing the latent and k_pe into ``cache`` in place; ``freqs``
+        None where ``mla_use_nope``."""
         s = h.shape[1]
+        nope = self.cfg.mla_use_nope
         if cache is None:
-            q_nope, q_pe, c, k_pe = self._project(h, freqs[:s])
+            q_nope, q_pe, c, k_pe = self._project(
+                h, None if nope else freqs[:s])
             return self._plain(q_nope, q_pe, c, k_pe) @ self.wo
         dev = h.device
         if isinstance(pos, torch.Tensor):
@@ -316,7 +337,8 @@ class MlaAttention(nn.Module):
             raise ValueError("with a cache the model runs a prompt from "
                              "position 0 or one new position at a tensor "
                              f"pos, got {s} at int pos {pos}")
-        q_nope, q_pe, c, k_pe = self._project(h, freqs.index_select(0, q_pos))
+        q_nope, q_pe, c, k_pe = self._project(
+            h, None if nope else freqs.index_select(0, q_pos))
         ckv = cache["ckv"]
         ckv.index_copy_(1, q_pos, torch.cat([c, k_pe], dim=-1).to(ckv.dtype))
         if isinstance(pos, torch.Tensor):
@@ -337,20 +359,25 @@ class MLP(nn.Module):
 
 
 class MoE(nn.Module):
-    """The expert layer on g (B, S, d): sigmoid scores over the experts
-    in f32, the ``top_k`` of score + correction bias picked, their
-    scores normalised to sum 1 and scaled by ``routed_scale``; the picked
-    experts' SwiGLUs weighed by them, summed in f32, plus the shared
-    experts' SwiGLU (one of width ``moe_d_ff · n_shared``). Every pick is
-    computed: no token is dropped."""
+    """The expert layer on g (B, S, d): sigmoid scores over the router's
+    ``n_routed`` experts in f32, the ``top_k`` of score + correction bias
+    picked, their scores normalised to sum 1 and scaled by
+    ``routed_scale``; the picked experts' SwiGLUs weighed by them, summed
+    in f32, plus the shared experts' SwiGLU (one of width ``moe_d_ff ·
+    n_shared``). Every pick of an expert held here is computed: no token
+    is dropped. Where the layer holds part of the experts (``n_experts``
+    from ``first_expert`` on, an expert-parallel card's share), a pick of
+    another card's expert is computed nowhere here and adds nothing: the
+    result is this card's share of the layer, the shared experts
+    included."""
 
     def __init__(self, cfg: MlaMoeConfig, device) -> None:
         super().__init__()
         self.cfg = cfg
         d, e, f, dt = cfg.d_model, cfg.n_experts, cfg.moe_d_ff, cfg.dtype
-        self.router = _weight((d, e), dt, device)
+        self.router = _weight((d, cfg.n_routed), dt, device)
         self.register_buffer("router_bias", torch.zeros(
-            e, dtype=torch.float32, device=device))
+            cfg.n_routed, dtype=torch.float32, device=device))
         self.w_gate = _weight((e, d, f), dt, device)
         self.w_up = _weight((e, d, f), dt, device)
         self.w_down = _weight((e, f, d), dt, device)
@@ -362,6 +389,10 @@ class MoE(nn.Module):
             x = g.reshape(-1, cfg.d_model)
             ids, wts = route(x, self.router, self.router_bias, cfg.top_k,
                              cfg.routed_scale)
+            if cfg.n_experts != cfg.n_routed:
+                ids = ids - cfg.first_expert
+                ids = ids.masked_fill((ids < 0) | (ids >= cfg.n_experts), -1)
+                count_held(ids, cfg.n_experts)
             return grouped_swiglu(x, ids, wts, self.w_gate, self.w_up,
                                   self.w_down, add=self.shared(x)
                                   ).view(g.shape)
@@ -391,7 +422,11 @@ class Block(nn.Module):
 class MlaMoe(nn.Module):
     """The model. Parameters are allocated uninitialised on ``device``
     (default: the card); fill them with ``load_state_dict`` from
-    :func:`init_params` or the benchmark's weights."""
+    :func:`init_params` or the benchmark's weights. A model of other
+    layers over the same embedding, head and forward gives its own
+    ``block`` class."""
+
+    block = Block
 
     def __init__(self, cfg: MlaMoeConfig,
                  device: DeviceLike = "cuda") -> None:
@@ -399,14 +434,15 @@ class MlaMoe(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.embed = _weight((cfg.vocab_size, cfg.d_model), cfg.dtype, dev)
-        self.layers = nn.ModuleList(Block(cfg, i, dev)
+        self.layers = nn.ModuleList(self.block(cfg, i, dev)
                                     for i in range(cfg.n_layers))
         self.final_norm = nn.Module()
         self.final_norm.weight = _norm(cfg.d_model, dev)
         self.lm_head = _weight((cfg.d_model, cfg.vocab_size), cfg.dtype, dev)
         self.register_buffer(
-            "freqs", rope_freqs(cfg.qk_rope_dim, cfg.max_seq_len,
-                                cfg.rope_theta, dev), persistent=False)
+            "freqs", None if cfg.mla_use_nope else rope_freqs(
+                cfg.qk_rope_dim, cfg.max_seq_len, cfg.rope_theta, dev),
+            persistent=False)
 
     @property
     def device(self) -> torch.device:

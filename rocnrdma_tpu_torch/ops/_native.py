@@ -26,7 +26,9 @@ device functions when they split the keys, and count as one launch.
 GEMMs, ``ops/moe.py``) share the headers ``csrc/moe_gemm.cuh`` (their
 few-row instance) and ``csrc/moe_gemm_tc.cuh`` (their many-row one).
 ``moe_combine`` (K8) sums each token's picked rows of G1's output and
-adds the shared experts'.
+adds the shared experts'. ``kda_recurrent`` (K9, ``ops/kda.py``) runs
+Kimi Delta Attention's short convolution and recurrence from states held
+in place.
 
 Route queries: the three attention kernels, ``flash_fwd`` (K3),
 ``flash_bwd_dkv`` (K4) and ``flash_bwd_dq`` (K5), have two instances
@@ -46,6 +48,15 @@ nothing, so what its thread counts while it records goes into a tally of
 its own (:func:`tally_launches`), and
 :class:`~rocnrdma_tpu_torch.utils.graphs.CapturedStep` counts that tally
 at every replay (``count(name, n)``).
+
+Device counters (:func:`count_on_device`) count what only the device
+knows without a synchronisation: an expert layer that holds part of the
+experts adds, at each call, the rows its picks lay out and the experts
+they touch (``moe_rows_few`` / ``moe_experts_few`` for G1's few-row
+instance, ``moe_rows_many`` / ``moe_experts_many`` for its many-row one).
+Each is a 0-d int64 tensor that the call adds to on the device, so a
+graph replay adds too; :func:`launches` reads them (a synchronisation)
+beside the launch counts, and :func:`reset_launches` zeroes them.
 """
 
 from __future__ import annotations
@@ -91,11 +102,12 @@ SIGNATURES = {
                                         _I, _I, _I, _I, _F, _I, _I, _P]),
     "decode_attn": ("decode_attn", [_P] * 7 + [_I] * 7 + [_L] * 9
                     + [_F, _I, _P]),
-    "mla_decode": ("mla_decode", [_P] * 6 + [_I] * 3 + [_L] * 4 + [_F, _P]),
+    "mla_decode": ("mla_decode", [_P] * 6 + [_I] * 4 + [_L] * 4 + [_F, _P]),
     "moe_gemm_up": ("moe_gemm_up", [_P] * 6 + [_I] * 7 + [_L] * 4 + [_P]),
     "moe_gemm_down": ("moe_gemm_down", [_P] * 5 + [_I] * 5 + [_L] * 4
                       + [_P]),
     "moe_combine": ("moe_combine", [_P] * 4 + [_I] * 3 + [_L, _P]),
+    "kda_recurrent": ("kda_recurrent", [_P] * 7 + [_I] * 4 + [_F, _P]),
 }
 KERNELS = tuple(SIGNATURES)
 # K6's device functions (``__global__``), by the names their symbols
@@ -112,6 +124,8 @@ MOE_GEMM_MANY_FUNCTIONS = ("moe_gemm_up_tc_kernel",
 # K8's device function (a template instance a pick count), named apart
 # from K1-K7's and G1's in the same way.
 MOE_COMBINE_FUNCTION = "moe_combine_kernel"
+# K9's device function, named apart from K1-K8's in the same way.
+KDA_RECURRENT_FUNCTION = "kda_recurrent_kernel"
 # Launch counters: one a kernel, and the launches of G1's many-row
 # instance.
 COUNTERS = KERNELS + ("moe_gemm_many",)
@@ -125,6 +139,10 @@ ROUTE_NAMES = {1: "tensor_core", 0: "scalar"}
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _launches: Dict[str, int] = {name: 0 for name in COUNTERS}
+# Device counters, by name (count_on_device).
+_device: Dict[str, torch.Tensor] = {}
+DEVICE_COUNTERS = ("moe_rows_few", "moe_experts_few", "moe_rows_many",
+                   "moe_experts_many")
 # This thread's open tally (tally_launches), if any.
 _local = threading.local()
 
@@ -289,12 +307,36 @@ def tally_launches() -> Iterator[Dict[str, int]]:
         _local.tally = prev
 
 
+def count_on_device(name: str, value: torch.Tensor) -> None:
+    """Add ``value`` (a 0-d integer tensor) to device counter ``name``
+    on the device, with no synchronisation; inside a graph capture the
+    add is recorded and each replay makes it. The counter's tensor is made
+    at its first count, which must come outside a capture (the eager
+    prefill or the step's warm-up)."""
+    if name not in DEVICE_COUNTERS:
+        raise KeyError(f"unknown device counter {name!r}")
+    acc = _device.get(name)
+    if acc is None or acc.device != value.device:
+        # A normal tensor even under inference mode, so that a count made
+        # outside it may add to it too.
+        with torch.inference_mode(False):
+            acc = _device[name] = torch.zeros((), dtype=torch.int64,
+                                              device=value.device)
+    acc.add_(value)
+
+
 def launches() -> Dict[str, int]:
     """Launches of each kernel (and of G1's many-row instance) since the
-    last :func:`reset_launches`."""
-    return dict(_launches)
+    last :func:`reset_launches`, and each device counter (read with a
+    synchronisation where it has been made, else 0)."""
+    out = dict(_launches)
+    out.update((name, int(_device[name]) if name in _device else 0)
+               for name in DEVICE_COUNTERS)
+    return out
 
 
 def reset_launches() -> None:
     for name in _launches:
         _launches[name] = 0
+    for acc in _device.values():
+        acc.zero_()

@@ -3,9 +3,11 @@ kernel K7 and its plain version.
 
 No Pallas kernel stands behind it: the JAX package has no latent
 attention. ``csrc/mla_decode.cu`` (K7) reads the bf16 latent cache in
-place, once for all 16 heads, up to the query's position, with the
-products on the tensor cores and f32 sums; its note says what bounds it
-on an H100 and how.
+place, up to the query's position, a block for each 16 heads of a
+sequence (16 or 32 heads: at 32 the two blocks of a sequence read its
+rows together, the second through the L2), with the products on the
+tensor cores and f32 sums; its note says what bounds it on an H100 and
+how.
 
 :func:`mla_decode` dispatches on the device: CUDA tensors launch K7, CPU
 tensors run :func:`mla_decode_reference`, any other device raises. There
@@ -26,11 +28,13 @@ import torch
 from . import _native
 
 __all__ = ["mla_decode", "mla_decode_reference", "mla_decode_splits",
-           "HEADS", "LATENT", "ROPE"]
+           "HEADS", "HEAD_COUNTS", "LATENT", "ROPE"]
 
-# The widths the kernel is built for: one mma tile's 16 rows of heads,
-# the DeepSeek-V3 latent and its roped key.
+# The widths the kernel is built for: one mma tile's 16 rows of heads (a
+# block's), the DeepSeek-V3 latent and its roped key; the query heads a
+# sequence it takes (Moonlight's 16, Kimi Linear's 32).
 HEADS, LATENT, ROPE = 16, 512, 64
+HEAD_COUNTS = (16, 32)
 # Blocks an SM runs at once (kMinBlocks in the source).
 BLOCKS_PER_SM = 2
 # Keys a tile; no split takes fewer than MIN_KEYS_PER_SPLIT.
@@ -57,7 +61,8 @@ def mla_decode_reference(q: torch.Tensor, ckv: torch.Tensor,
 
 def mla_decode_splits(b: int, t: int, n_sm: int) -> int:
     """How many key ranges K7 cuts a cache of ``t`` positions into for
-    ``b`` sequences on a card of ``n_sm`` SMs: as many as fill the
+    ``b`` blocks of 16 heads (sequences × head groups) on a card of
+    ``n_sm`` SMs: as many as fill the
     card's resident blocks (``BLOCKS_PER_SM · n_sm``) in one wave, no
     split under ``MIN_KEYS_PER_SPLIT`` keys, and at least one."""
     fill = BLOCKS_PER_SM * n_sm // max(b, 1)
@@ -76,9 +81,9 @@ def _check(q: torch.Tensor, ckv: torch.Tensor, q_pos: torch.Tensor,
         raise ValueError("latent decode takes q (B, H, latent + rope) and "
                          "ckv (B, T, latent + rope)")
     b, h, w = q.shape
-    if (h, w, latent) != (HEADS, LATENT + ROPE, LATENT):
-        raise ValueError(f"latent decode kernel takes {HEADS} heads of "
-                         f"{LATENT} + {ROPE}, got {h} of {w} (latent "
+    if h not in HEAD_COUNTS or (w, latent) != (LATENT + ROPE, LATENT):
+        raise ValueError(f"latent decode kernel takes {HEAD_COUNTS} heads "
+                         f"of {LATENT} + {ROPE}, got {h} of {w} (latent "
                          f"{latent})")
     if ckv.shape[0] != b or ckv.shape[2] != w:
         raise ValueError(f"ckv {tuple(ckv.shape)} does not match q "
@@ -106,15 +111,15 @@ def _launch(q: torch.Tensor, ckv: torch.Tensor, q_pos: torch.Tensor,
             scale: float, splits: int) -> torch.Tensor:
     """K7 with ``splits`` key ranges (merged by its combine pass when
     more than one)."""
-    b, t = q.shape[0], ckv.shape[1]
-    out = torch.empty((b, HEADS, LATENT), dtype=q.dtype, device=q.device)
+    b, h, t = q.shape[0], q.shape[1], ckv.shape[1]
+    out = torch.empty((b, h, LATENT), dtype=q.dtype, device=q.device)
     if b == 0:
         return out
     part_o = part_ml = None
     if splits > 1:
-        part_o = torch.empty((b * HEADS, splits, LATENT),
+        part_o = torch.empty((b * h, splits, LATENT),
                              dtype=torch.float32, device=q.device)
-        part_ml = torch.empty((b * HEADS, splits, 2), dtype=torch.float32,
+        part_ml = torch.empty((b * h, splits, 2), dtype=torch.float32,
                               device=q.device)
     lib = _native.library("mla_decode")
     _native.count("mla_decode")
@@ -122,7 +127,7 @@ def _launch(q: torch.Tensor, ckv: torch.Tensor, q_pos: torch.Tensor,
         q.data_ptr(), ckv.data_ptr(), q_pos.data_ptr(), out.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
         None if part_ml is None else part_ml.data_ptr(),
-        b, t, splits, q.stride(0), q.stride(1), ckv.stride(0), ckv.stride(1),
+        b, h, t, splits, q.stride(0), q.stride(1), ckv.stride(0), ckv.stride(1),
         float(np.float32(math.log2(math.e) * scale)),
         _native.stream_handle(q.device))
     _native.check("mla_decode", rc)
@@ -144,5 +149,6 @@ def mla_decode(q: torch.Tensor, ckv: torch.Tensor, q_pos: torch.Tensor,
     _check(q, ckv, q_pos, latent)
     index = q.device.index
     n_sm = _sm_count(torch.cuda.current_device() if index is None else index)
+    blocks = q.shape[0] * (q.shape[1] // HEADS)
     return _launch(q, ckv, q_pos, scale,
-                   mla_decode_splits(q.shape[0], ckv.shape[1], n_sm))
+                   mla_decode_splits(blocks, ckv.shape[1], n_sm))

@@ -48,9 +48,9 @@ import torch.nn.functional as F
 
 from . import _native
 
-__all__ = ["route", "align", "grouped_swiglu", "grouped_swiglu_reference",
-           "block_rows", "gemm_up", "gemm_down", "combine",
-           "combine_reference"]
+__all__ = ["route", "align", "count_held", "grouped_swiglu",
+           "grouped_swiglu_reference", "block_rows", "gemm_up", "gemm_down",
+           "combine", "combine_reference"]
 
 
 def route(x: torch.Tensor, router: torch.Tensor, bias: torch.Tensor,
@@ -121,7 +121,8 @@ def align(ids: torch.Tensor, n_experts: int, bm: int):
     ``N · k`` for a padding row; ``block_expert`` (cap / bm,) int32, the
     expert of each block of ``bm`` rows, ``n_experts`` past the last.
     ``cap = N·k + n_experts·(bm - 1)`` rounded up to ``bm``, a size fixed
-    by the shapes."""
+    by the shapes. A pick of id -1 (an expert another card holds) takes
+    no row: its ``dest`` is -1 and no padded row names it."""
     flat = ids.reshape(-1)
     rows = flat.numel()
     dev = ids.device
@@ -130,18 +131,39 @@ def align(ids: torch.Tensor, n_experts: int, bm: int):
     # runs at memory speed (a scan along the outer one does not).
     onehot = (experts[:, None] == flat[None, :]).to(torch.int32)
     seen = onehot.cumsum(1, dtype=torch.int32)
-    rank = seen.gather(0, flat[None, :])[0].long() - 1
-    counts = seen[:, -1].long()
+    other = flat < 0
+    at = flat.clamp(min=0)
+    counts = seen[:, -1]
     padded = (counts + bm - 1) // bm * bm
     ends = padded.cumsum(0)
-    dest = (ends - padded)[flat] + rank
+    # A pick's row: its expert's first row plus the picks of that expert
+    # before it (seen counts itself); -1 for another card's pick.
+    dest = ((ends - padded - 1)[at] + seen.gather(0, at[None, :])[0]
+            ).masked_fill_(other, -1)
     cap = -(-(rows + n_experts * (bm - 1)) // bm) * bm
-    row_slot = torch.full((cap,), rows, dtype=torch.int32, device=dev)
-    row_slot.scatter_(0, dest, torch.arange(rows, dtype=torch.int32,
-                                            device=dev))
+    # Indexing wraps a -1 to the spare slot past the end, which is cut off.
+    row_slot = torch.full((cap + 1,), rows, dtype=torch.int32, device=dev)
+    row_slot[dest] = torch.arange(rows, dtype=torch.int32, device=dev)
     block_expert = torch.searchsorted(
         ends, torch.arange(0, cap, bm, device=dev), right=True)
-    return dest.view(ids.shape), row_slot, block_expert.to(torch.int32)
+    return dest.view(ids.shape), row_slot[:cap], block_expert.to(torch.int32)
+
+
+def count_held(ids: torch.Tensor, n_experts: int) -> None:
+    """Add the picks of ``ids`` (N, k) that this card holds (id ≥ 0) and
+    the held experts they touch to the device counters of the G1
+    instance that computes them (``moe_rows_<few|many>``,
+    ``moe_experts_<few|many>``, by :func:`block_rows`), which the
+    benchmark's yardstick of the held experts reads. No synchronisation,
+    so a graph replay counts too."""
+    kind = ("few" if block_rows(ids.numel(), n_experts) == FEW_ROWS
+            else "many")
+    flat = ids.reshape(-1)
+    _native.count_on_device(f"moe_rows_{kind}", (flat >= 0).sum())
+    # Another card's -1 lands past the held experts.
+    hit = torch.zeros(n_experts + 1, dtype=torch.int64, device=ids.device)
+    hit.index_fill_(0, flat.remainder(n_experts + 1), 1)
+    _native.count_on_device(f"moe_experts_{kind}", hit[:n_experts].sum())
 
 
 def _check(x, ids, wts, w_gate, w_up, w_down, add=None) -> None:
@@ -222,11 +244,16 @@ def gemm_down(h, block_expert, row_w, w_down, out) -> None:
 def combine_reference(out: torch.Tensor, dest: torch.Tensor,
                       add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain combine: each token's rows ``out[dest[t, j]]`` gathered,
-    widened to f32 and summed in pick order, rounded once to out's dtype;
-    then ``add``, if given, added in out's dtype."""
-    acc = out.index_select(0, dest[:, 0]).float()
+    widened to f32 and summed in pick order, rounded once to out's dtype
+    (a pick of ``dest`` -1, another card's expert, reads as zeros); then
+    ``add``, if given, added in out's dtype."""
+    def row(j):
+        rows = out.index_select(0, dest[:, j].clamp(min=0)).float()
+        return rows.masked_fill(dest[:, j, None] < 0, 0.0)
+
+    acc = row(0)
     for j in range(1, dest.shape[1]):
-        acc += out.index_select(0, dest[:, j]).float()
+        acc += row(j)
     routed = acc.to(out.dtype)
     return routed if add is None else routed + add
 
@@ -234,7 +261,8 @@ def combine_reference(out: torch.Tensor, dest: torch.Tensor,
 def combine(out: torch.Tensor, dest: torch.Tensor,
             add: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K8 over the down GEMM's rows ``out`` (cap, d) and :func:`align`'s
-    ``dest`` (N, k): (N, d), bitwise :func:`combine_reference`. One launch
+    ``dest`` (N, k), -1 for no row: (N, d), bitwise
+    :func:`combine_reference`. One launch
     of ``moe_combine`` on CUDA tensors; CPU tensors run the plain
     version."""
     if _native.device_type(out, "moe combine") == "cpu":
@@ -258,8 +286,11 @@ def _launch(x, ids, wts, w_gate, w_up, w_down, add) -> torch.Tensor:
     e, d, f = w_gate.shape
     dest, row_slot, block_expert = align(ids, e, block_rows(n * k, e))
     cap = row_slot.numel()
-    row_w = torch.zeros(cap, dtype=torch.float32, device=x.device)
-    row_w.scatter_(0, dest.reshape(-1), wts.reshape(-1).float())
+    # Each padded row's routing weight, 0 for a padding row; another
+    # card's pick (-1) writes the spare slot past the end.
+    row_w = torch.zeros(cap + 1, dtype=torch.float32, device=x.device)
+    row_w[dest.reshape(-1)] = wts.reshape(-1).float()
+    row_w = row_w[:cap]
     h = torch.empty((cap, f), dtype=x.dtype, device=x.device)
     out = torch.empty((cap, d), dtype=x.dtype, device=x.device)
     gemm_up(x, row_slot, block_expert, k, w_gate, w_up, h)
@@ -276,6 +307,10 @@ def grouped_swiglu(x: torch.Tensor, ids: torch.Tensor, wts: torch.Tensor,
     stacked weights w_gate, w_up (E, d, f) and w_down (E, f, d), plus
     ``add`` (N, d) if given (the shared experts' output), added after the
     sum's rounding. Returns (N, d) in x's dtype.
+
+    A pick of id -1 is of an expert another card holds (the weights are
+    this card's): it is computed nowhere here and adds nothing (no row in
+    :func:`align`, the GEMMs or K8).
 
     CUDA tensors: :func:`align` and the three CUDA kernels. CPU tensors:
     :func:`grouped_swiglu_reference`."""

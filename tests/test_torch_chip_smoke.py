@@ -1,8 +1,9 @@
 """The bounds of ``chip_smoke.py``'s ``kernels`` line, at the shapes of
 PERF.md §6's kernel table: each entry's and each of its cells'
-``bound_ms`` and ``bound_by``. K1-K5 and K7 take them from the
+``bound_ms`` and ``bound_by``. K1-K5, K7 and K9 take them from the
 benchmark's yardstick (``benchmark/roofline.py``,
-``benchmark/roofline_mla.py``), as G1's GEMMs alone do; K6, G1's
+``benchmark/roofline_mla.py``, ``benchmark/roofline_kimi.py``), as G1's
+GEMMs alone do; K6, G1's
 whole call and K8, which the benchmark does not bound, are written on
 its ``bound_s``. The expected values are the table's, to the last bit, so a
 change to either side shows here before the table and the benchmark's
@@ -73,10 +74,15 @@ CASES = {
                          ((128, 32, 8, 128, 960, bf), 0.1510262447761194),
                          ((128, 32, 8, 128, 1144, bf), 0.17982295880597013),
                          ((16, 32, 8, 128, 8250, bf), 0.16149244179104477))],
-    # B 64 over the decode-mla cell's cache, at its mean and last position.
+    # B 64 over the decode-mla cell's cache, at its mean and last
+    # position; at 32 heads, B 128 over the decode-hybrid cell's.
     "K7 mla_decode": [
         (partial(cs.mla_decode_bound, 64, 4033), (0.08944685850746269, BYTES)),
-        (partial(cs.mla_decode_bound, 64, 4223), (0.09362844656716418, BYTES))],
+        (partial(cs.mla_decode_bound, 64, 4223), (0.09362844656716418, BYTES)),
+        (partial(cs.mla_decode_bound, 128, 1800,
+                 cs.rlk.mla_config(cs.KIMI)), (0.08193467223880596, BYTES)),
+        (partial(cs.mla_decode_bound, 128, 2047,
+                 cs.rlk.mla_config(cs.KIMI)), (0.09280680119402986, BYTES))],
     # A decode step's 64 tokens and a prefill chunk's 65,536, and the
     # chunk's two GEMMs alone (the entry's ``many_rows``).
     "G1 moe_gemm": [
@@ -88,6 +94,11 @@ CASES = {
     "K8 moe_combine": [
         (partial(cs.combine_bound, 64), (0.0006269325373134329, BYTES)),
         (partial(cs.combine_bound, 62400), (0.6112592238805971, BYTES))],
+    # A decode step's 128 sequences of one token and a prefill chunk's
+    # 40 of 1,600 at the decode-hybrid cell's 32 heads.
+    "K9 kda_recurrent": [
+        (partial(cs.kda_bound, 128, 1), (0.16214291104477613, BYTES)),
+        (partial(cs.kda_bound, 40, 1600), (0.9915498985074627, BYTES))],
 }
 
 

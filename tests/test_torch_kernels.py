@@ -181,7 +181,9 @@ def test_autograd_on_the_card_launches_every_backward_kernel(cuda):
                                   "flash_bwd_dkv": 1, "decode_attn": 0,
                                   "mla_decode": 0, "moe_gemm_up": 0,
                                   "moe_gemm_down": 0, "moe_gemm_many": 0,
-                                  "moe_combine": 0}
+                                  "moe_combine": 0, "kda_recurrent": 0,
+                                  "moe_rows_few": 0, "moe_experts_few": 0,
+                                  "moe_rows_many": 0, "moe_experts_many": 0}
     assert torch.isfinite(x.grad).all() and torch.isfinite(w.grad).all()
 
 
@@ -452,7 +454,9 @@ def test_graphed_generate_launch_counts_exact(cuda):
             "flash_fwd": n_layers, "rmsnorm_bwd": 0, "flash_bwd_dq": 0,
             "flash_bwd_dkv": 0, "decode_attn": n_layers * (new - 1),
             "mla_decode": 0, "moe_gemm_up": 0, "moe_gemm_down": 0,
-            "moe_gemm_many": 0, "moe_combine": 0}
+            "moe_gemm_many": 0, "moe_combine": 0, "kda_recurrent": 0,
+            "moe_rows_few": 0, "moe_experts_few": 0, "moe_rows_many": 0,
+            "moe_experts_many": 0}
     assert graphs.captures() == before + 1
 
 

@@ -345,7 +345,7 @@ def test_registry_lists_k8_and_names_it_apart():
 def test_registry_lists_k7_and_the_grouped_gemms():
     P, I, L, F = (_native._P, _native._I, _native._L, _native._F)
     assert _native.SIGNATURES["mla_decode"] == (
-        "mla_decode", [P] * 6 + [I] * 3 + [L] * 4 + [F, P])
+        "mla_decode", [P] * 6 + [I] * 4 + [L] * 4 + [F, P])
     assert _native.SIGNATURES["moe_gemm_up"] == (
         "moe_gemm_up", [P] * 6 + [I] * 7 + [L] * 4 + [P])
     assert _native.SIGNATURES["moe_gemm_down"] == (

@@ -139,7 +139,9 @@ def test_cpu_wrappers_launch_no_kernel():
                                   "flash_bwd_dkv": 0, "decode_attn": 0,
                                   "mla_decode": 0, "moe_gemm_up": 0,
                                   "moe_gemm_down": 0, "moe_gemm_many": 0,
-                                  "moe_combine": 0}
+                                  "moe_combine": 0, "kda_recurrent": 0,
+                                  "moe_rows_few": 0, "moe_experts_few": 0,
+                                  "moe_rows_many": 0, "moe_experts_many": 0}
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 102),
